@@ -11,20 +11,35 @@ Phases, each of which fails the run (non-zero exit) on a wrong result:
    nvcc into ``build/repro_torch/`` and prints the seconds and the ptxas
    report;
 3. kernels — each hand-written kernel against its plain PyTorch version at
-   the main path's shapes of both datasets (uk_elec: n = 18,432, L = 48;
+   the main paths' shapes of both datasets (uk_elec: n = 18,432, L = 48;
    aus_elec: nb = 245,760 onto nyb = 5,120, kappa = 48, L = 7), every
    measure, with the tolerance stated, timed with CUDA events (kernel,
-   plain version and, for lag_dot, a PyTorch conv1d yardstick);
-4. main path — ``compress()`` at full width on uk_elec (n = 17,520,
-   L = 48) and aus_elec (n = 230,688, L = 7, kappa = 48) on the card:
-   deviation <= eps, a from-scratch float64 re-measure on the CPU agrees,
-   endpoints kept, kept values bit-exact, every kernel launched, and point
-   CR within 5% of the same call on the CPU;
-5. diagnostics — a torch.profiler breakdown of one uk_elec run
-   (``chiprun_out/profile_uk_elec.txt``), and the round where aus_elec's
-   card run parts from its CPU run with what differs there
-   (``chiprun_out/diverge_aus_elec.json``); then a ``{"kernels": [...]}``
-   line;
+   plain version and, for lag_dot, a PyTorch conv1d yardstick): the
+   rounds mode's float32 kernels, the float64 forms of the sequential mode
+   (acf_impact at init, acf_window_impact at the ReHeap's P = 50 and, off
+   the driven paths, the partitioned mode's ranking chunk, P = 4,096) and
+   the scan's prefix walk (prefix_devs, greedy and not, at each dataset's
+   k_max);
+4. main paths — ``compress()`` on the card with, for each run, every
+   kernel of its path launched, deviation <= eps, a from-scratch float64
+   re-measure on the CPU agreeing to 1e-9, endpoints kept and kept values
+   bit-exact: rounds mode (``select="backoff"``) and ``select="scan"`` at
+   full width and length on uk_elec (n = 17,520, L = 48) and aus_elec
+   (n = 230,688, L = 7, kappa = 48), and ``mode="sequential"`` at the
+   quickstart's widths (hops 24, window 64) on uk_elec (4,096 points) and
+   aus_elec (4,800).  Backoff and sequential CRs are held within 5% of the
+   same call on the CPU; the scan's CR is reported beside the CPU path's
+   (which runs the linearized branch, the card the greedy one) and the
+   card's backoff CR;
+5. diagnostics — a lock-step scan round on uk_elec (from one carry on the
+   card, the greedy branch with the prefix_devs kernel and with its plain
+   version must take the same candidates), torch.profiler breakdowns of
+   the uk_elec rounds run and both scan runs
+   (``chiprun_out/profile_<dataset>_<path>.txt``: each hand kernel's
+   device time a round and the card's idle share), and the round
+   where aus_elec's card run parts from its CPU run with what differs
+   there (``chiprun_out/diverge_aus_elec.json``); then a
+   ``{"kernels": [...]}`` line;
 6. the last line, ``{"ok": true, "device": {...}}``.
 
 It imports nothing of JAX or of the JAX package.  ``run_phases`` is the
@@ -56,6 +71,7 @@ from repro_torch.data.synthetic import (dataset_cameo_kwargs,  # noqa: E402
                                         make_dataset)
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import acf_impact as _acf_impact  # noqa: E402
+from repro_torch.kernels import acf_window_impact as _awi  # noqa: E402
 from repro_torch.kernels import fused_round as _fused  # noqa: E402
 from repro_torch.kernels import lag_dot as _lag_dot  # noqa: E402
 from repro_torch.kernels import ops as _ops  # noqa: E402
@@ -68,20 +84,45 @@ FP32_FLOPS = 67e12          # FP32 outside the tensor cores
 
 WRAPPERS = {"lag_dot": _lag_dot.lag_dot_cuda,
             "acf_impact": _acf_impact.acf_impact_cuda,
-            "window_rows": _fused.window_rows_cuda}
+            "window_rows": _fused.window_rows_cuda,
+            "acf_window_impact": _awi.acf_window_impact_cuda,
+            "prefix_devs": _fused.prefix_devs_cuda}
 SOURCES = {"lag_dot": "src/repro_torch/kernels/csrc/lag_dot.cu",
            "acf_impact": "src/repro_torch/kernels/csrc/acf_impact.cu",
-           "window_rows": "src/repro_torch/kernels/csrc/window_rows.cu"}
+           "window_rows": "src/repro_torch/kernels/csrc/window_rows.cu",
+           "acf_window_impact":
+               "src/repro_torch/kernels/csrc/acf_window_impact.cu",
+           "prefix_devs": "src/repro_torch/kernels/csrc/prefix_devs.cu"}
 REPLACES = {"lag_dot": "src/repro/kernels/lag_dot.py:42",
             "acf_impact": "src/repro/kernels/acf_impact.py:93",
-            "window_rows": "src/repro/kernels/fused_round.py:276"}
+            "window_rows": "src/repro/kernels/fused_round.py:276",
+            "acf_window_impact": "src/repro/kernels/acf_window_impact.py:77",
+            "prefix_devs": "src/repro/kernels/fused_round.py:382"}
 # Each output is held to its plain version elementwise: |got - want| <=
 # rtol |want| + floor max|want|.  The floor scales with the output, so an
 # output of the wrong scale (zeros, say) fails whatever the inputs' size.
+# Float32 outputs: rtol 1e-4; float64 outputs: 1e-10 (the kernels round
+# every operation as their plain versions do, so all of them come out bit
+# for bit equal; the tolerances admit another summation order).
+TOL_F64 = (1e-10, 1e-12)
 TOL = {"lag_dot": (1e-10, 1e-10), "acf_impact": (1e-4, 1e-6),
-       "window_rows": (1e-4, 1e-6)}
+       "window_rows": (1e-4, 1e-6), "acf_window_impact": TOL_F64,
+       "prefix_devs": TOL_F64}
 DATASETS = ("uk_elec", "aus_elec")
 EPS = 1e-2
+# the main paths of phase 4: (name, CameoConfig overrides, kernels the path
+# launches, whether its CR is held within 5% of the CPU path's)
+PATHS = {
+    "rounds": (dict(), ("lag_dot", "acf_impact", "window_rows"), True),
+    "scan": (dict(select="scan"),
+             ("lag_dot", "acf_impact", "window_rows", "prefix_devs"), False),
+    "sequential": (dict(mode="sequential", hops=24, window=64),
+                   ("lag_dot", "acf_impact", "acf_window_impact"), True),
+}
+# the sequential mode's lengths (the quickstart's documented 4,096 points
+# for uk_elec, 100 y cells of kappa = 48 for aus_elec): it pops one point
+# per iteration, each a few ms of eager host dispatch on the card
+SEQ_LENGTHS = {"uk_elec": 4096, "aus_elec": 4800}
 
 
 class SmokeFailure(RuntimeError):
@@ -124,6 +165,20 @@ def device_ms(fn, device, reps: int = 7, inner: int = 20):
     return statistics.median(times)
 
 
+def timed_once(fn, device):
+    """``(fn(), ms)``: one call timed with CUDA events (None on the CPU),
+    for plain versions too slow to repeat."""
+    if device.type != "cuda":
+        return fn(), None
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def bound_ms(nbytes: float, flops: float, peak_flops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / peak_flops
@@ -131,9 +186,10 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float):
                                        else "operations")
 
 
-def check_close(what: str, kname: str, got, want) -> float:
-    """Hold ``got`` to ``want`` under ``TOL[kname]``; max abs error."""
-    rtol, floor = TOL[kname]
+def check_close(what: str, kname: str, got, want, tol=None) -> float:
+    """Hold ``got`` to ``want`` under ``tol`` (default ``TOL[kname]``);
+    max abs error."""
+    rtol, floor = TOL[kname] if tol is None else tol
     err = torch.abs(got - want)
     scale = float(torch.max(torch.abs(want)))
     require(scale > 0, f"{what}: the plain version is all zeros")
@@ -267,8 +323,140 @@ def phase_kernels(device, name: str, length=None) -> list:
         row[key] = None if None in vals else sum(vals)
     row["bound_by"] = max(tiers, key=lambda t: t["bound_ms"])["bound_by"]
     out.append(row)
+    out += phase_kernels_f64(device, cfg, nb, ny, y64, table, p0, rng)
     for r in out:
         r["dataset"] = name
+    return out
+
+
+def window_impact_bound(P, W, L, item, peak):
+    """Bytes: contexts, deltas, starts, table + p0, output.  Operations the
+    function needs, counted as for window_rows (the head and tail masks
+    select a prefix and a suffix of the window): per (candidate, lag) 4 W
+    for the bilinear sum, 2 for the tail sums, 5 to add the table, 12 for
+    Eq. 2, 3 for the measure; per candidate 3 W for e and 2 W for the
+    prefix sums of d and e."""
+    return bound_ms((P * (W + 2 * L) + P * W + 6 * L + P) * item + 4 * P,
+                    P * (L * (4.0 * W + 22) + 5.0 * W), peak)
+
+
+def phase_kernels_f64(device, cfg, nb, ny, y64, table, p0, rng) -> list:
+    """The sequential mode's and the scan's float64 kernels at the main
+    paths' shapes: acf_impact at the sequential init, acf_window_impact
+    at the ReHeap (P = 2(hops + 1) = 50) and at a ranking chunk (P =
+    impact_chunk, kappa = 1 only: the partitioned mode's shape, which no
+    path of the port runs yet), and prefix_devs at the scan's k_max."""
+    L, kap, nyb = cfg.lags, cfg.kappa, y64.shape[0]
+    out = []
+    # acf_impact, float64: the sequential init over SEQ_LENGTHS points
+    n_seq = SEQ_LENGTHS["uk_elec" if kap == 1 else "aus_elec"]
+    y_s = y64[:n_seq // kap].contiguous()
+    agg_s = extract_aggregates(y_s.cpu(), L, backend="reference")
+    t_s = torch.stack(list(agg_s)).to(device)
+    p_s = acf_from_aggregates(t_s, y_s.shape[0])
+    d_s = torch.from_numpy(rng.standard_normal(n_seq)
+                           * float(torch.std(y_s)) * 0.05).to(device)
+    err = 0.0
+    for measure in ("mae", "rmse", "cheb"):
+        kw = dict(L=L, measure=measure, kappa=kap)
+        err = max(err, check_close(
+            f"acf_impact float64 ({measure})", "acf_impact",
+            _acf_impact.acf_impact_cuda(y_s, d_s, t_s, p_s, **kw),
+            _acf_impact.acf_impact_plain(y_s, d_s, t_s, p_s, **kw),
+            tol=TOL_F64))
+    kw = dict(L=L, measure="mae", kappa=kap)
+    bnd, by = bound_ms((y_s.shape[0] + 2 * n_seq + 6 * L) * 8,
+                       n_seq * (22.0 * L + 3), FP64_FLOPS)
+    out.append(dict(
+        name="acf_impact", shape=f"P={n_seq} ny={y_s.shape[0]} kappa={kap} "
+                                 f"L={L} float64 (sequential init)",
+        max_abs_err=err,
+        ms=device_ms(lambda: _acf_impact.acf_impact_cuda(
+            y_s, d_s, t_s, p_s, **kw), device),
+        plain_ms=device_ms(lambda: _acf_impact.acf_impact_plain(
+            y_s, d_s, t_s, p_s, **kw), device),
+        library_ms=None, bound_ms=bnd, bound_by=by))
+
+    # acf_window_impact, float64: ReHeap windows (W = 64 mapped onto y)
+    W = 64 if kap == 1 else 64 // kap + 2
+    scale = float(torch.std(y64[:ny])) * 0.05
+    chunk = min(cfg.impact_chunk, ny)
+    for P in ((50, chunk) if kap == 1 else (50,)):
+        starts = torch.from_numpy(
+            rng.integers(0, ny - W, P).astype(np.int32)).to(device)
+        dw = torch.from_numpy(rng.standard_normal((P, W)) * scale).to(device)
+        ctx = _ref.candidate_contexts(y64[:ny], starts, L=L, W=W)
+        args = (ctx, dw, starts, table, p0)
+        err = 0.0
+        for measure in ("mae", "rmse", "cheb"):
+            kw = dict(ny=ny, L=L, measure=measure)
+            err = max(err, check_close(
+                f"acf_window_impact (P={P}, W={W}, {measure})",
+                "acf_window_impact", _awi.acf_window_impact_cuda(*args, **kw),
+                _awi.acf_window_impact_plain(*args, **kw)))
+        kw = dict(ny=ny, L=L, measure="mae")
+        bnd, by = window_impact_bound(P, W, L, 8, FP64_FLOPS)
+        out.append(dict(
+            name="acf_window_impact",
+            shape=f"P={P} W={W} L={L} float64" + (
+                "" if P == 50 else " (ranking chunk of the partitioned mode, unported: off path)"),
+            max_abs_err=err,
+            ms=device_ms(lambda: _awi.acf_window_impact_cuda(*args, **kw),
+                         device),
+            plain_ms=device_ms(lambda: _awi.acf_window_impact_plain(
+                *args, **kw), device, reps=3, inner=3),
+            library_ms=None, bound_ms=bnd, bound_by=by))
+
+    # prefix_devs, float64: one scan round's walk over K = k_max ranks
+    K = max(1, min(int(cfg.alpha * nb), nb - 2))
+    Wy = cfg.window if kap == 1 else cfg.window // kap + 2
+    starts = torch.from_numpy(
+        rng.integers(1, ny - Wy, K).astype(np.int32)).to(device)
+    dyws = torch.from_numpy(rng.standard_normal((K, Wy))
+                            * scale * 0.2).to(device)
+    ok = torch.from_numpy(rng.random(K) > 0.3).to(device)
+    ny_t = torch.full((1,), ny, dtype=torch.int32, device=device)
+    args = (y64, dyws, starts, ok, table, p0, ny_t)
+    curve = _fused.prefix_devs_cuda(*args, L=L, measure="mae")
+    # eps at the middle of the prefix curve: the greedy walk then both
+    # commits and skips
+    eps = torch.sort(curve).values[K // 2].reshape(1)
+    # the plain version walks K candidates with ~30 PyTorch ops each (25 s
+    # at aus_elec's K on the card), so it runs once per case: the prefix
+    # curve and the greedy walk under mae, the other measures where K is
+    # small; the greedy mae call is the one timed
+    err, plain_ms = 0.0, None
+    cases = [(False, "mae"), (True, "mae")]
+    if K <= 4096:
+        cases += [(True, "rmse"), (True, "cheb")]
+    for greedy, measure in cases:
+        kw = dict(L=L, measure=measure, greedy=greedy)
+        got = _fused.prefix_devs_cuda(*args, eps, **kw)
+        want, ms = timed_once(lambda: _fused.prefix_devs_plain(
+            *args, eps, **kw), device)
+        if (greedy, measure) == (True, "mae"):
+            plain_ms = ms
+        err = max(err, check_close(
+            f"prefix_devs (K={K}, Wy={Wy}, greedy={greedy}, {measure})",
+            "prefix_devs", got, want))
+    take = ok & (_fused.prefix_devs_cuda(*args, eps, L=L, greedy=True)
+                 <= eps)
+    require(0 < int(take.sum()) < int(ok.sum()),
+            "prefix_devs check: the greedy walk should commit and skip")
+    kw = dict(L=L, measure="mae", greedy=True)
+    # per candidate: the window-impact count at P = 1, plus Wy for the
+    # commit of z (the table's commit is a copy)
+    bnd, by = bound_ms((nyb + K * Wy + 6 * L + K) * 8 + 5 * K,
+                       K * (L * (4.0 * Wy + 22) + 6.0 * Wy), FP64_FLOPS)
+    out.append(dict(
+        name="prefix_devs", shape=f"K={K} Wy={Wy} L={L} nyb={nyb} float64 "
+                                  f"greedy (commits {int(take.sum())} of "
+                                  f"{int(ok.sum())} ok)",
+        max_abs_err=err,
+        ms=device_ms(lambda: _fused.prefix_devs_cuda(*args, eps, **kw),
+                     device, reps=5, inner=5),
+        plain_ms=plain_ms, library_ms=None, bound_ms=bnd, bound_by=by,
+        measures=[m for g, m in cases if g]))
     return out
 
 
@@ -288,9 +476,40 @@ def remeasure(x: np.ndarray, xr: np.ndarray, cfg) -> float:
     return float(mfn(stats[1], stats[0]))
 
 
-def phase_main(device, name: str, length=None, cpu_check: bool = True):
-    spec = dataset_cameo_kwargs(name)
-    cfg = cameo.CameoConfig(eps=EPS, **spec)
+def _path_cfg(name: str, path: str):
+    over, kernels, held = PATHS[path]
+    return cameo.CameoConfig(eps=EPS, **dataset_cameo_kwargs(name),
+                             **over), kernels, held
+
+
+def first_differing_pop(device, cfg, x: np.ndarray) -> dict:
+    """Step the sequential loop on the card and on the CPU side by side
+    from their own inits and report the first pop whose kept masks differ:
+    the point each removed and their popped impacts."""
+    out = None
+    states = []
+    for dev in (torch.device(device), torch.device("cpu")):
+        xt = torch.from_numpy(x).to(dev)
+        carry, p0 = cameo._sequential_init(xt, cfg)
+        states.append([carry, *cameo._sequential_fns(cfg, x.shape[0], p0)])
+    pop = 0
+    while bool(states[1][1](states[1][0])):
+        pops = []
+        for st in states:
+            carry, _, body = st
+            i = int(torch.argmin(carry[4]))
+            pops.append(dict(point=i, impact=float(carry[4][i])))
+            st[0] = body(carry)
+        if not torch.equal(states[0][0][1].cpu(), states[1][0][1]):
+            out = dict(pop=pop, card=pops[0], cpu=pops[1])
+            break
+        pop += 1
+    return out or dict(pop=None, pops=pop)
+
+
+def phase_main(device, name: str, path: str = "rounds", length=None,
+               cpu_check: bool = True):
+    cfg, kernels, held = _path_cfg(name, path)
     x = make_dataset(name, seed=0, length=length)
     n = (x.shape[0] // cfg.kappa) * cfg.kappa
     x = x[:n]
@@ -309,36 +528,87 @@ def phase_main(device, name: str, length=None, cpu_check: bool = True):
     kept = res.kept.cpu().numpy()
     xr = res.xr.cpu().numpy()
     dev = float(res.deviation)
-    require(dev <= cfg.eps + 1e-12, f"{name}: deviation {dev} > eps")
+    what = f"{name} {path}"
+    require(dev <= cfg.eps + 1e-12, f"{what}: deviation {dev} > eps")
     re = remeasure(x, xr, cfg)
     require(abs(re - dev) <= 1e-9,
-            f"{name}: re-measured deviation {re} != reported {dev}")
-    require(bool(kept[0] and kept[-1]), f"{name}: an endpoint was dropped")
+            f"{what}: re-measured deviation {re} != reported {dev}")
+    require(bool(kept[0] and kept[-1]), f"{what}: an endpoint was dropped")
     require(np.array_equal(xr[kept], x[kept]),
-            f"{name}: kept values are not bit-exact")
+            f"{what}: kept values are not bit-exact")
     if device.type == "cuda":
-        for kname, c in counts.items():
-            require(c > 0, f"{name}: kernel {kname} was never launched")
+        for kname in kernels:
+            require(counts[kname] > 0,
+                    f"{what}: kernel {kname} was never launched")
     cr = n / float(kept.sum())
-    row = dict(dataset=name, n=n, lags=cfg.lags, kappa=cfg.kappa,
-               rounds=int(res.iters), cr=cr, deviation=dev, remeasured=re,
-               wall_s=wall, launches=counts, max_memory_allocated=mem)
+    row = dict(dataset=name, path=path, n=n, lags=cfg.lags, kappa=cfg.kappa,
+               iters=int(res.iters), cr=cr, deviation=dev, remeasured=re,
+               wall_s=wall, s_per_iter=wall / max(int(res.iters), 1),
+               launches=counts, max_memory_allocated=mem)
     if cpu_check and device.type == "cuda":
+        t0 = time.perf_counter()
         ref = cameo.compress(x, cfg, device="cpu")
-        cr_cpu = n / float(ref.n_kept)
-        require(abs(cr - cr_cpu) <= 0.05 * cr_cpu,
-                f"{name}: CR {cr} is not within 5% of the CPU path's "
-                f"{cr_cpu}")
-        row.update(cr_cpu=cr_cpu, rounds_cpu=int(ref.iters))
+        row.update(cr_cpu=n / float(ref.n_kept), iters_cpu=int(ref.iters),
+                   wall_s_cpu=time.perf_counter() - t0,
+                   same_kept=bool(torch.equal(res.kept.cpu(), ref.kept)))
+        if held:
+            require(abs(cr - row["cr_cpu"]) <= 0.05 * row["cr_cpu"],
+                    f"{what}: CR {cr} is not within 5% of the CPU path's "
+                    f"{row['cr_cpu']}")
+        if path == "sequential" and not row["same_kept"]:
+            row["first_differing_pop"] = first_differing_pop(device, cfg, x)
     return row
 
 
-def profile_main(device, name: str = "uk_elec") -> dict:
+def scan_lockstep(device, name: str = "uk_elec", rounds: int = 3) -> dict:
+    """One scan round from one carry on the card, twice: the greedy branch
+    with the prefix_devs kernel and with its plain version.  Their take
+    masks (ok & devs <= eps) must be identical, and so the carries."""
+    device = torch.device(device)
+    cfg, _, _ = _path_cfg(name, "scan")
+    x = make_dataset(name, seed=0)
+    n = (x.shape[0] // cfg.kappa) * cfg.kappa
+    nb = cameo._round_bucket(n, cfg)
+    xp = F.pad(torch.from_numpy(x[:n]), (0, nb - n)).to(device)
+    nv = torch.full((), n, dtype=torch.int32, device=device)
+    min_alive, eps = cameo._halting_params(n, cfg)
+    consts = (torch.full((), min_alive, dtype=torch.int32, device=device),
+              torch.full((), eps, dtype=cfg.tdtype(), device=device))
+    carry, p0 = cameo._rounds_init(xp, nv, cfg)
+    probe, body = cameo._round_fns(cfg, nb, nv, *consts, p0)
+    for _ in range(rounds):
+        go, small = probe(carry).tolist()
+        require(go, f"{name} scan ended before the lock-step round")
+        carry = body(carry, small=small)
+    go, small = probe(carry).tolist()
+    takes, outs = {}, {}
+    for key, fn in (("kernel", _fused.prefix_devs_cuda),
+                    ("plain", _fused.prefix_devs_plain)):
+        def recording(*a, _fn=fn, _key=key, **kw):
+            devs = _fn(*a, **kw)
+            takes[_key] = (a[3] & (devs <= a[7])).cpu()
+            return devs
+        _, body_k = cameo._round_fns(cfg, nb, nv, *consts, p0,
+                                     prefix_devs_fn=recording)
+        outs[key] = body_k(carry, small=small)
+    require(torch.equal(takes["kernel"], takes["plain"]),
+            f"{name} lock-step scan round: the kernel's take mask differs "
+            f"from the plain version's in "
+            f"{int(torch.sum(takes['kernel'] != takes['plain']))} ranks")
+    same = all(torch.equal(a, b) for a, b in zip(outs["kernel"],
+                                                  outs["plain"]))
+    require(same, f"{name} lock-step scan round: the carries differ")
+    return dict(dataset=name, round=rounds, ranks=int(takes["kernel"].numel()),
+                taken=int(takes["kernel"].sum()), takes_equal=True,
+                carries_equal=same)
+
+
+def profile_main(device, name: str = "uk_elec", path: str = "rounds") -> dict:
     """torch.profiler breakdown of one main-path run (the card's busy time
-    by kernel) written under chiprun_out/."""
+    by kernel, each hand kernel's device time and launches a round, the
+    idle share) written under chiprun_out/."""
     from torch.profiler import ProfilerActivity, profile
-    spec = dataset_cameo_kwargs(name)
-    cfg = cameo.CameoConfig(eps=EPS, **spec)
+    cfg, _, _ = _path_cfg(name, path)
     x = make_dataset(name, seed=0)
     cameo.compress(x, cfg, device=device)            # warm
     torch.cuda.synchronize()
@@ -358,23 +628,33 @@ def profile_main(device, name: str = "uk_elec") -> dict:
         if t and ev.device_type == torch.autograd.DeviceType.CUDA:
             dev_us[ev.key] = dev_us.get(ev.key, 0.0) + t
             dev_n[ev.key] = dev_n.get(ev.key, 0) + int(ev.count)
-    ours = {k: v for k, v in dev_us.items()
-            if any(s in k for s in ("lag_dot", "acf_impact", "window_rows"))}
     busy = sum(dev_us.values()) / 1e6
-    rounds = int(res.iters)
+    rounds = max(int(res.iters), 1)
+    hand = {}
+    for kname in WRAPPERS:
+        # the kernels sit in anonymous namespaces: "(anonymous
+        # namespace)::lag_dot_partials<double>(...)"
+        keys = [k for k in dev_us if f"::{kname}_" in k]
+        us = sum(dev_us[k] for k in keys)
+        if keys:
+            hand[kname] = dict(device_us=us,
+                               launches=sum(dev_n[k] for k in keys),
+                               device_ms_per_round=us / 1e3 / rounds,
+                               share_of_wall=us / 1e6 / wall)
+    hand_s = sum(h["device_us"] for h in hand.values()) / 1e6
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
-    (out_dir / f"profile_{name}.txt").write_text(
+    (out_dir / f"profile_{name}_{path}.txt").write_text(
         events.table(sort_by=sort_key, row_limit=80))
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:10]
-    return dict(dataset=name, rounds=rounds, wall_s=wall,
-                host_s_per_round=wall / max(rounds, 1),
+    return dict(dataset=name, path=path, rounds=int(res.iters), wall_s=wall,
+                host_s_per_round=wall / rounds,
                 device_busy_s=busy, idle_share=1.0 - busy / wall,
                 device_launches=sum(dev_n.values()),
-                launches_per_round=sum(dev_n.values()) / max(rounds, 1),
-                hand_kernels_s=sum(ours.values()) / 1e6,
-                hand_kernel_share_of_busy=sum(ours.values()) / 1e6 / busy
-                if busy else None,
+                launches_per_round=sum(dev_n.values()) / rounds,
+                hand_kernels_s=hand_s,
+                hand_kernel_share_of_busy=hand_s / busy if busy else None,
+                hand_kernels=hand,
                 top_kernels_us={k[:60]: v for k, v in top})
 
 
@@ -523,12 +803,17 @@ def first_divergence(device, name: str = "aus_elec", length=None,
 
 
 def run_phases(device, *, uk_length=None, aus_length=None,
-               cpu_check: bool = True, log=print) -> dict:
+               seq_lengths=None, seq_full=(), cpu_check: bool = True,
+               log=print) -> dict:
     """Phases 3-4 on ``device``: each kernel against its plain version at
-    both datasets' shapes, then the main path on uk_elec and aus_elec.
+    both datasets' shapes, then the main paths on uk_elec and aus_elec
+    (rounds and scan at ``uk_length``/``aus_length``, default full;
+    sequential at ``seq_lengths``, default ``SEQ_LENGTHS``, and at full
+    length for the datasets in ``seq_full``, without the CPU run).
     Returns the report."""
     device = torch.device(device)
     lengths = dict(zip(DATASETS, (uk_length, aus_length)))
+    seq_lengths = seq_lengths or SEQ_LENGTHS
     kernels = []
     for name in DATASETS:
         for k in phase_kernels(device, name, lengths[name]):
@@ -540,12 +825,26 @@ def run_phases(device, *, uk_length=None, aus_length=None,
                 f"bound_ms={k['bound_ms']:.3e} ({k['bound_by']})")
     runs = []
     totals = dict.fromkeys(WRAPPERS, 0)
-    for name in DATASETS:
-        row = phase_main(device, name, lengths[name], cpu_check=cpu_check)
+    for path in PATHS:
+        for name in DATASETS:
+            length = seq_lengths[name] if path == "sequential" \
+                else lengths[name]
+            row = phase_main(device, name, path, length,
+                             cpu_check=cpu_check)
+            for kname, c in row["launches"].items():
+                totals[kname] += c
+            runs.append(row)
+            log("main " + json.dumps(row))
+    for name in seq_full:
+        row = phase_main(device, name, "sequential", cpu_check=False)
         for kname, c in row["launches"].items():
             totals[kname] += c
         runs.append(row)
         log("main " + json.dumps(row))
+    by = {(r["dataset"], r["path"]): r for r in runs}
+    for name in DATASETS:
+        # the scan's CR beside the card's backoff CR
+        by[(name, "scan")]["cr_backoff"] = by[(name, "rounds")]["cr"]
     return dict(kernels=kernels, runs=runs, launches=totals)
 
 
@@ -597,8 +896,21 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {stem}: {line.strip()}")
 
-    report = run_phases(device)
-    print("profile " + json.dumps(profile_main(device)))
+    # uk_elec's sequential run at its full 17,520 points too: ~4 ms of
+    # host dispatch a pop on the card, so its CPU twin (~10 ms a pop) is
+    # left to the 4,096-point run
+    report = run_phases(device, seq_full=("uk_elec",))
+    for r in report["runs"]:
+        print("path " + json.dumps({k: r.get(k) for k in (
+            "dataset", "path", "n", "iters", "iters_cpu", "cr", "cr_cpu",
+            "cr_backoff", "same_kept", "wall_s", "s_per_iter",
+            "wall_s_cpu")}))
+    print("lockstep " + json.dumps(scan_lockstep(device)))
+    # the rounds path, then the scan on both datasets: how much of a scan
+    # round the prefix walk takes, from the trace
+    for name, path in (("uk_elec", "rounds"), ("uk_elec", "scan"),
+                       ("aus_elec", "scan")):
+        print("profile " + json.dumps(profile_main(device, name, path)))
     div = first_divergence(device)
     (ROOT / "chiprun_out" / "diverge_aus_elec.json").write_text(
         json.dumps(div, indent=1))

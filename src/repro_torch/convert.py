@@ -1,12 +1,14 @@
 """State carried between the JAX package and the port.
 
 CAMEO has no weights: what one package can hand the other is its
-configuration and the rounds-mode loop carry.  ``config_from_dict`` reads
-``dataclasses.asdict`` of a JAX ``CameoConfig``; the carry travels as
-numpy arrays in JAX's 13-tuple order
-``(xr, alive, prev, nxt, y, tbl, alpha, dev, rounds, done, blocked,
-retried, saw_c)``.  This lets a test start the port from the reference's
-exact state.
+configuration and the loop carries.  ``config_from_dict`` reads
+``dataclasses.asdict`` of a JAX ``CameoConfig``.  The rounds carry travels
+as numpy arrays in JAX's 13-tuple order ``(xr, alive, prev, nxt, y, tbl,
+alpha, dev, rounds, done, blocked, retried, saw_c)``; the sequential carry
+in JAX's 10-tuple order ``(xr, alive, prev, nxt, imp, agg, y, dev, it,
+done)``, with ``agg`` the five per-lag aggregate rows (JAX's
+``Aggregates``) or the packed ``[5, L]`` table.  This lets a test start the
+port from the reference's exact state.
 """
 from __future__ import annotations
 
@@ -43,4 +45,21 @@ def carry_from_numpy(arrays, device) -> tuple:
 
 def carry_to_numpy(carry) -> tuple:
     """The rounds carry as numpy arrays."""
+    return tuple(t.detach().cpu().numpy() for t in carry)
+
+
+def sequential_carry_from_numpy(arrays, device) -> tuple:
+    """The sequential carry as tensors on ``device``; ``agg`` becomes the
+    port's ``[5, L]`` table."""
+    if len(arrays) != 10:
+        raise ValueError(f"a sequential carry has 10 fields, got {len(arrays)}")
+    arrays = list(arrays)
+    arrays[5] = np.stack([np.asarray(a) for a in arrays[5]])
+    return tuple(torch.from_numpy(np.array(a, copy=True)).to(device)
+                 for a in arrays)
+
+
+def sequential_carry_to_numpy(carry) -> tuple:
+    """The sequential carry as numpy arrays (``agg`` as the ``[5, L]``
+    table)."""
     return tuple(t.detach().cpu().numpy() for t in carry)

@@ -4,6 +4,8 @@
 * ``apply_delta_dense`` — exact update from a dense delta vector (the
   rounds mode: one O(nL) update per round, including the cross-lag
   bilinear term across all of the round's segments).
+* ``apply_delta_window`` — exact update from a delta confined to a
+  window of ``W`` points (the sequential mode, Eq. 9).
 * the alive-neighbor geometry: ``alive_neighbors``,
   ``neighbors_after_removal``, ``interpolate_at`` and the segment deltas.
 
@@ -20,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.acf import Aggregates
+from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.ref import gather_clamped
 
 
@@ -93,6 +96,61 @@ def apply_delta_dense_ref(agg, y_old: torch.Tensor, delta: torch.Tensor,
                                        + delta * d_sh)))
     dtable = torch.stack([dsx, dsxl, dsx2, dsxl2, torch.stack(terms)])
     return Aggregates(*(agg[i] + dtable[i] for i in range(5)))
+
+
+# ---------------------------------------------------------------------------
+# Windowed exact update (sequential mode, Eq. 9)
+# ---------------------------------------------------------------------------
+
+def apply_delta_window(agg, y_old: torch.Tensor, delta_win: torch.Tensor,
+                       start, *, W: int, L: int):
+    """Exact Eq. 9 update for a delta confined to ``W`` contiguous points
+    ``start .. start + W - 1`` (``start`` an int or 0-d tensor).
+
+    Out-of-range window positions must carry zero delta.  The context is
+    read at the start clipped into ``[0, ny]``; the head/tail masks use the
+    unclipped start.  Cost O(W * L).  ``agg`` may be the ``Aggregates``
+    tuple or the ``[5, L]`` table; the update comes back in the same form.
+    """
+    ny = y_old.shape[0]
+    dtype = y_old.dtype
+    dev = y_old.device
+    y_pad = F.pad(y_old, (L, L + W))
+    k = torch.arange(W + 2 * L, device=dev)
+    start = torch.as_tensor(start, device=dev)
+    ywin = y_pad[torch.clamp(start, 0, ny) + k]              # [W + 2L]
+    j = torch.arange(W, device=dev)
+    l = torch.arange(1, L + 1, device=dev)
+    abs_t = start + j
+    head = (abs_t[:, None] <= (ny - 1 - l)).to(dtype)       # [W, L]
+    tail = (abs_t[:, None] >= l).to(dtype)
+    d = delta_win[:, None]
+    e = delta_win * (2.0 * ywin[L:L + W] + delta_win)
+    y_fwd = ywin[(L + j)[:, None] + l[None, :]]              # [W, L]
+    y_bwd = ywin[(L + j)[:, None] - l[None, :]]
+    d_fwd = F.pad(delta_win, (0, L))[j[:, None] + l[None, :]]
+    terms = torch.stack([d * head, d * tail, e[:, None] * head,
+                         e[:, None] * tail,
+                         d * (y_fwd * head + y_bwd * tail + d_fwd * head)])
+    return _with_deltas(agg, torch.sum(terms, dim=1))        # [5, L]
+
+
+def acf_after_window_delta_ctx(agg, y_ctx, starts, dwins, *, ny: int, off):
+    """Hypothetical ACF after each candidate's windowed delta applied
+    alone (vectorized Eq. 9), ``[P, L]``; the math lives in
+    ``kernels/ref.py``."""
+    return _ref.acf_after_window_delta_ctx(agg, y_ctx, starts, dwins, ny=ny,
+                                           off=off)
+
+
+def acf_after_window_delta(agg, y: torch.Tensor, starts: torch.Tensor,
+                           dwins: torch.Tensor) -> torch.Tensor:
+    """Single-partition wrapper around :func:`acf_after_window_delta_ctx`."""
+    L = agg[0].shape[-1]
+    W = dwins.shape[1]
+    y_ctx = F.pad(y, (L, L + W))
+    return acf_after_window_delta_ctx(agg, y_ctx, starts, dwins,
+                                      ny=y.shape[0], off=0)
 
 
 # ---------------------------------------------------------------------------

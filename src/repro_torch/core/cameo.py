@@ -1,5 +1,5 @@
-"""CAMEO: autocorrelation-preserving lossy compression (paper §4), rounds
-mode — port of ``repro/core/cameo.py``.
+"""CAMEO: autocorrelation-preserving lossy compression (paper §4) — port
+of ``repro/core/cameo.py``.
 
 ``mode="rounds"`` is the batched-greedy form: every round ranks all alive
 points (Eq. 8 single-delta impacts for span-1 candidates, exact Eq. 9 rows
@@ -7,20 +7,29 @@ for wider segments in two capacity-bounded tiers), removes an independent
 set of the lowest-impact candidates, applies one exact dense aggregate
 update for the whole round and accepts or rejects the round against the
 ε constraint.  Ranking runs in float32, the exact update and the
-deviation in the configured dtype (float64 by default).
+deviation in the configured dtype (float64 by default).  ``select``
+chooses the round's prefix: ``"backoff"`` (adaptive α), ``"bisect"``
+(dense prefix search) or ``"scan"`` — on the card the greedy walk of the
+``prefix_devs`` kernel over the exact running reconstruction, elsewhere
+the linearized slack packing, as the JAX package chooses by device.
 
-PyTorch runs eagerly, so the round loop is a Python loop over ``body``.
-The body has no device-side branches: every update is gated on the
-``live``/``accept`` masks, as in the JAX program.  The one choice that
-changes the trajectory — the small-round instantiation (``k_cap <=
-k_small``) — is read by the host together with the loop condition in one
-small device-to-host copy per round.  The JAX loop's empty-tier skip is
-bit-identical to ranking the tier unconditionally, which is what the port
-does.
+``mode="sequential"`` is the paper's Algorithm 1: one point removed per
+pop (a dense masked argmin for the heap), an exact Eq. 9 windowed update
+and constraint check at pop time, and a ReHeap of the ``hops`` alive
+neighbours on each side through the windowed-impact kernel.
+
+PyTorch runs eagerly, so each loop is a Python loop over ``body``.  The
+bodies have no device-side branches: every update is gated on the
+``live``/``accept``/``can_remove`` masks, so a step past the loop's end is
+an exact no-op.  The host reads the rounds loop's condition (with the
+small-round choice, which changes the trajectory) once per round, and the
+sequential loop's once per block of pops.  The JAX loop's empty-tier skip
+is bit-identical to ranking the tier unconditionally, which is what the
+port does.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
-The carry is JAX's 13-tuple, in its order, so a carry can be handed across
-packages (``repro_torch.convert``).
+The carries are JAX's tuples, in its order, so a carry can be handed
+across packages (``repro_torch.convert``).
 """
 from __future__ import annotations
 
@@ -35,11 +44,13 @@ from repro_torch.core import measures as _measures
 from repro_torch.core.acf import (
     acf_from_aggregates,
     aggregate_series,
+    extract_aggregates,
     extract_aggregates_masked,
 )
 from repro_torch.core.aggregates import (
     alive_neighbors,
     apply_delta_dense,
+    apply_delta_window,
     interpolate_at,
     neighbors_after_removal,
     segment_deltas,
@@ -63,14 +74,14 @@ class CameoConfig:
     stat: str = "acf"              # "acf" | "pacf"
     measure: str = "mae"           # see core.measures
     kappa: int = 1                 # Def. 2 tumbling-window size (mean agg)
-    mode: str = "rounds"           # "rounds" ("sequential" not ported yet)
+    mode: str = "rounds"           # "rounds" | "sequential"
     # -- rounds mode --
     alpha: float = 0.10            # per-round removal fraction cap
     max_rounds: int = 400
     impact_chunk: int = 4096
     rank: str = "window"           # "window" (exact Eq. 9) | "single" (Alg. 2)
     stop_policy: str = "exhaustive"  # "exhaustive" | "first_violation"
-    select: str = "backoff"        # "backoff" | "bisect" ("scan" not ported)
+    select: str = "backoff"        # "backoff" | "bisect" | "scan"
     bisect_probes: int = 6
     # -- sequential mode --
     hops: int = 16
@@ -196,22 +207,17 @@ def _halting_params(n: int, cfg: CameoConfig):
 
 
 def _check_supported(cfg: CameoConfig) -> None:
-    if cfg.mode == "sequential":
-        raise NotImplementedError("mode='sequential' is " + _NOT_PORTED.format(
-            item="A2, with acf_window_impact_pallas as B5"))
-    if cfg.mode != "rounds":
+    if cfg.mode not in ("rounds", "sequential"):
         raise ValueError(f"unknown mode {cfg.mode!r}")
-    if cfg.select == "scan":
-        raise NotImplementedError("select='scan' is " + _NOT_PORTED.format(
-            item="A1, with prefix_devs_pallas as B4"))
-    if cfg.select not in ("backoff", "bisect"):
+    if cfg.select not in ("backoff", "bisect", "scan"):
         raise ValueError(f"unknown select {cfg.select!r}")
     if cfg.rank not in ("window", "single"):
         raise ValueError(f"unknown rank {cfg.rank!r}")
 
 
 def _round_fns(cfg: CameoConfig, nb: int, n_valid: torch.Tensor,
-               min_alive: torch.Tensor, eps: torch.Tensor, p0: torch.Tensor):
+               min_alive: torch.Tensor, eps: torch.Tensor, p0: torch.Tensor,
+               prefix_devs_fn=None):
     """``(probe, body)`` closures for the rounds loop at bucket size ``nb``.
 
     ``probe(carry)`` is a 2-element bool tensor ``[go, small]``: the loop
@@ -219,7 +225,11 @@ def _round_fns(cfg: CameoConfig, nb: int, n_valid: torch.Tensor,
     ``body(carry, small)`` runs one round (``small`` selects the
     ``k_small`` instantiation, as JAX's ``lax.cond`` does).  ``n_valid``,
     ``min_alive`` and ``eps`` are 0-d tensors on ``p0``'s device.
+    ``prefix_devs_fn`` is the prefix walk of the card's greedy scan branch
+    (default the kernel, ``fused_round.prefix_devs_cuda``).
     """
+    if prefix_devs_fn is None:
+        prefix_devs_fn = _fused.prefix_devs_cuda
     _check_supported(cfg)
     dt = cfg.tdtype()
     dev = p0.device
@@ -345,6 +355,49 @@ def _round_fns(cfg: CameoConfig, nb: int, n_valid: torch.Tensor,
                           p0)
             return dev_new, sel, alive_new, xr_new, dy, tbl_new, prev_n, nxt_n
 
+        def linearized_pack(sel_idx, ok, dyw_k, ystart_k):
+            """Linearized slack packing (the JAX package's off-TPU branch):
+            score each survivor by the directional derivative of the
+            deviation along its solo aggregate delta, sort by that marginal
+            and search, with at most 4 dense probes, for the largest prefix
+            of that order that the dense update accepts."""
+            k_rows = sel_idx.shape[0]
+            ar0 = torch.arange(k_rows, dtype=torch.int32, device=dev)
+            gtbl = _deviation_grad(cfg, tbl, ny_valid, p0)
+            dagg = _fused.solo_moment_rows(y, dyw_k, ystart_k, ny_valid, L=L)
+            g = torch.einsum("al,kal->k", gtbl, dagg)
+            gi = torch.where(ok, g, inf)
+            order = torch.argsort(gi, stable=True)
+            gs = gi[order]
+            finite_g = torch.isfinite(gs)
+            pred = dev_ + torch.cumsum(torch.where(finite_g, gs, 0.0), dim=0)
+            kidx = ar0 + 1
+            rank_pos = torch.zeros((k_rows,), dtype=torch.int32, device=dev)
+            rank_pos[order] = ar0
+            zero = torch.zeros((), dtype=torch.int32, device=dev)
+            k_lo, k_hi = zero, torch.sum(finite_g).to(torch.int32) + 1
+            err = torch.zeros((), dtype=dt, device=dev)
+            out_lo = (dev_, torch.zeros((nb,), dtype=torch.bool, device=dev),
+                      alive, xr, torch.zeros((nb // kap,), dtype=dt,
+                                             device=dev), tbl, prev, nxt)
+            # bracketed Newton search: each probe calibrates the
+            # linearization bias err and proposes the largest prefix that
+            # fits the corrected budget, clipped into the open bracket
+            for _ in range(4):
+                if not bool(k_hi - k_lo > 1):
+                    break
+                k_p = torch.amax(torch.where(finite_g & (pred + err <= eps),
+                                             kidx, zero))
+                k_p = torch.clamp(k_p, k_lo + 1, k_hi - 1)
+                out_p = dense_apply(sel_idx, ok & (rank_pos < k_p))
+                fits = out_p[0] <= eps
+                err = out_p[0] - pred[torch.clamp_min(k_p - 1, 0)]
+                out_lo = tuple(torch.where(fits, a, b)
+                               for a, b in zip(out_p, out_lo))
+                k_lo = torch.where(fits, k_p, k_lo)
+                k_hi = torch.where(fits, k_hi, k_p)
+            return out_lo, k_lo == 0
+
         def round_at(k_rows: int, cb: int, cc: int):
             if cfg.rank == "single":
                 impact = torch.where(cand, imp_sd, inf)
@@ -384,7 +437,28 @@ def _round_fns(cfg: CameoConfig, nb: int, n_valid: torch.Tensor,
             # so one pass serves every prefix the selection may choose
             ok = sel_surv[sel_idx] & rank_ok
 
-            if cfg.select == "bisect":
+            if cfg.select == "scan":
+                dwin_k, start_k, _ = segment_deltas(xr, prev, nxt, sel_idx, W)
+                dyw_k, ystart_k = _ops.x_window_to_y(cfg, dwin_k, start_k)
+                if use_kernel:
+                    # the greedy walk on the exact running reconstruction
+                    # (the TPU's branch); the dense check gates the round,
+                    # with the feasible prefix as the fallback proposal
+                    take_g, take_pre, more = greedy_take(
+                        prefix_devs_fn, y, dyw_k.contiguous(),
+                        ystart_k.to(torch.int32).contiguous(), ok, tbl, p0,
+                        ny_valid.reshape(1), eps.reshape(1), L=L,
+                        measure=cfg.measure)
+                    out_a = dense_apply(sel_idx, take_g)
+                    out_b = dense_apply(sel_idx, take_pre)
+                    use_a = (out_a[0] <= eps) | (~more)
+                    out = tuple(torch.where(use_a, a, b)
+                                for a, b in zip(out_a, out_b))
+                    no_fit = ~torch.any(take_g)
+                else:
+                    out, no_fit = linearized_pack(sel_idx, ok, dyw_k,
+                                                  ystart_k)
+            elif cfg.select == "bisect":
                 lo = torch.zeros((), dtype=torch.int32, device=dev)
                 hi = torch.clamp_max(k_cap, k_rows)
                 for _ in range(cfg.bisect_probes):
@@ -451,6 +525,39 @@ def _round_fns(cfg: CameoConfig, nb: int, n_valid: torch.Tensor,
                 done_new, blocked_new, retried_new, saw_c)
 
     return probe, body
+
+
+def _deviation_grad(cfg: CameoConfig, tbl: torch.Tensor, ny, p0):
+    """Gradient ``[5, L]`` of the deviation with respect to the moment
+    table, with JAX's conventions at the kinks (``core.measures``): at
+    round 0 every lag sits at ``|rho - p0| = 0``."""
+    transform, mfn = _stat_transform(cfg), _measure_fn(cfg)
+    with torch.enable_grad():
+        t = tbl.detach().requires_grad_(True)
+        dev = mfn(transform(acf_from_aggregates(t, ny)), p0)
+        (g,) = torch.autograd.grad(dev, t)
+    return g
+
+
+def greedy_take(prefix_devs_fn, y, dyws, ystarts, ok, tbl, p0, ny, eps, *,
+                L: int, measure: str):
+    """The greedy scan's decisions for one round.
+
+    ``prefix_devs_fn`` (``fused_round.prefix_devs_cuda`` on the card, or
+    its plain version) walks the rank order committing each ``ok``
+    candidate whose trial deviation fits ``eps``.  Returns ``take_g`` (the
+    greedy's commits), ``take_pre`` (those before the first skipped ``ok``
+    candidate, the fallback proposal) and ``more`` (``take_g`` holds
+    candidates past that skip)."""
+    devs = prefix_devs_fn(y, dyws, ystarts, ok, tbl, p0, ny, eps, L=L,
+                          measure=measure, greedy=True)
+    take_g = ok & (devs <= eps)
+    k_rows = ok.shape[0]
+    ar0 = torch.arange(k_rows, device=ok.device)
+    first_skip = torch.amin(torch.where(ok & (~take_g), ar0, k_rows))
+    take_pre = take_g & (ar0 < first_skip)
+    more = torch.sum(take_g) > torch.sum(take_pre)
+    return take_g, take_pre, more
 
 
 def _run_rounds(carry, probe, body):
@@ -530,6 +637,170 @@ def compress_rounds(x, cfg: CameoConfig, *, pad_to: Optional[int] = None,
 
 
 # ---------------------------------------------------------------------------
+# sequential mode (paper-faithful Algorithm 1)
+# ---------------------------------------------------------------------------
+
+# Pops the host runs between two reads of the loop condition on the card
+# (every pop past the end is an exact no-op); on the CPU a read is free.
+_SEQ_BLOCK = 128
+
+
+def _windowed_add(arr: torch.Tensor, win: torch.Tensor, st, Wn: int):
+    """``arr[st + j] += win[j]`` with JAX's clamp-safe shift near the end
+    (``dynamic_update_slice`` at ``clip(st, 0, size - Wn)``)."""
+    size = arr.shape[0]
+    offset = torch.clamp(st, 0, size - Wn)
+    shift = st - offset
+    k = torch.arange(Wn, device=arr.device)
+    buf = torch.where(k >= shift, win[torch.clamp(k - shift, 0, Wn - 1)],
+                      0.0)
+    pos = offset + k
+    return arr.scatter(0, pos, arr[pos] + buf)
+
+
+def _collect_neighbors(alive: torch.Tensor, p, q, h: int):
+    """The h + 1 alive indices walking left from ``p`` and right from ``q``
+    (both included), clamped at the series ends with the duplicates the JAX
+    package's pointer walk produces (0 past the left end, n - 1 past the
+    right).  Computed from alive ranks instead of 2(h + 1) pointer steps:
+    the walk follows the alive chain, so its k-th step is the alive point
+    whose rank is k away."""
+    n = alive.shape[0]
+    c = torch.cumsum(alive.to(torch.int32), dim=0, dtype=torch.int32)
+    k = torch.arange(h + 1, dtype=torch.int32, device=alive.device)
+    rank_p = c[torch.clamp(p, 0, n - 1)]
+    rank_q = c[torch.clamp(q, 0, n - 1)]
+    left = torch.searchsorted(c, rank_p - k)     # rank <= 0 lands on 0
+    right = torch.searchsorted(c, rank_q + k)    # past the end lands on n
+    return torch.cat([left, torch.clamp(right, max=n - 1)])
+
+
+def _sequential_fns(cfg: CameoConfig, n: int, p0: torch.Tensor):
+    """``(probe, body)`` for the sequential loop over a series of length
+    ``n``: ``probe(carry)`` is the 0-d loop condition, ``body(carry)`` one
+    pop, branch-free (the apply and reject results are both formed and
+    selected on ``can_remove``; a pop past the end is an exact no-op)."""
+    dt = cfg.tdtype()
+    dev = p0.device
+    L, W, h, kap = cfg.lags, cfg.window, cfg.hops, cfg.kappa
+    ny = n // kap
+    Wy = W if kap == 1 else W // kap + 2
+    transform = _stat_transform(cfg)
+    mfn = _measure_fn(cfg)
+    min_alive, eps = _halting_params(n, cfg)
+    eps = torch.full((), eps, dtype=dt, device=dev)
+    max_iters = cfg.max_iters if cfg.max_iters is not None else n - min_alive
+    idx = torch.arange(n, dtype=torch.int32, device=dev)
+    inf = float("inf")
+
+    def probe(c):
+        (xr, alive, prev, nxt, imp, tbl, y, dev_, it, done) = c
+        return (~done) & (it < max_iters) & (torch.sum(alive) > min_alive)
+
+    def body(c):
+        (xr, alive, prev, nxt, imp, tbl, y, dev_, it, done) = c
+        live = probe(c)
+        i = torch.argmin(imp)                   # first minimum, as jnp
+        best = imp[i]
+        p, q = prev[i], nxt[i]
+        # exact Eq. 9 trial removal of point i (segment (p, q))
+        dwin, start, span = segment_deltas(xr, prev, nxt, i, W)
+        dyw, ystart = _ops.x_window_to_y(cfg, dwin, start)
+        tbl_t = apply_delta_window(tbl, y, dyw, ystart, W=Wy, L=L)
+        dev_t = mfn(transform(acf_from_aggregates(tbl_t, ny)), p0)
+        finite = torch.isfinite(best)
+        valid = span <= W
+        can_remove = live & finite & valid & (dev_t <= eps)
+        # exhaustive: a rejected pop blocks its candidate (impact inf) until
+        # a ReHeap revives it, and only an all-inf heap ends the run;
+        # first_violation is the paper's literal stop
+        if cfg.stop_policy == "first_violation":
+            stop = (finite & valid & (dev_t > eps)) | (~finite)
+        else:
+            stop = ~finite
+        done_new = done | (live & stop)
+
+        # apply: remove i, re-line its segment, ReHeap h alive neighbours a
+        # side through the windowed impact engine
+        xr2 = _windowed_add(xr, dwin, start, W)
+        alive2 = alive & (idx != i)
+        prev2 = torch.where(idx == q, p, prev)
+        nxt2 = torch.where(idx == p, q, nxt)
+        y2 = _windowed_add(y, dyw, ystart, Wy)
+        imp_rej = torch.where(idx == i, inf, imp)
+        nbrs = _collect_neighbors(alive2, p, q, h)
+        new_imps = _ops.window_impact_at(cfg, tbl_t, y2, xr2, prev2, nxt2,
+                                         nbrs, p0)
+        # duplicated neighbours carry identical values, so write order is
+        # irrelevant; only alive points take an update
+        imp_app = imp_rej.clone()
+        imp_app[nbrs] = torch.where(alive2[nbrs], new_imps, imp_rej[nbrs])
+
+        def pick(a, b):
+            return torch.where(can_remove, a, b)
+        return (pick(xr2, xr), pick(alive2, alive), pick(prev2, prev),
+                pick(nxt2, nxt),
+                pick(imp_app, torch.where(live, imp_rej, imp)),
+                pick(tbl_t, tbl), pick(y2, y), pick(dev_t, dev_),
+                it + live.to(torch.int32), done_new)
+
+    return probe, body
+
+
+def _sequential_init(x: torch.Tensor, cfg: CameoConfig):
+    """Initial sequential carry (JAX's 10-tuple ``(xr, alive, prev, nxt,
+    imp, agg, y, dev, it, done)``, with ``agg`` as the ``[5, L]`` table) and
+    the target stat ``p0``.  The initial impacts are the Algorithm-2
+    single-delta ones, exact while every segment has span 1."""
+    dt = cfg.tdtype()
+    n = x.shape[0]
+    y0 = aggregate_series(x, cfg.kappa)
+    tbl0 = _ops.agg_to_table(extract_aggregates(y0, cfg.lags,
+                                                backend=cfg.backend))
+    p0 = _stat_transform(cfg)(acf_from_aggregates(tbl0, y0.shape[0]))
+    idx = torch.arange(n, dtype=torch.int32, device=x.device)
+    alive0 = torch.ones((n,), dtype=torch.bool, device=x.device)
+    imp0 = _ops.ranking_impact(cfg, tbl0, y0, x, alive0, p0, n, rank="single")
+
+    def scalar(v, dtype):
+        return torch.full((), v, dtype=dtype, device=x.device)
+
+    carry = (x, alive0, idx - 1, idx + 1, imp0, tbl0, y0, scalar(0.0, dt),
+             scalar(0, torch.int32), scalar(False, torch.bool))
+    return carry, p0
+
+
+def _run_sequential(carry, probe, body, block: int):
+    """Drive the sequential loop, reading the condition once per ``block``
+    pops."""
+    while bool(probe(carry)):
+        for _ in range(block):
+            carry = body(carry)
+    return carry
+
+
+def compress_sequential(x, cfg: CameoConfig, *,
+                        device="cuda") -> CompressResult:
+    """Paper Algorithm 1 on ``device``: one point removed per pop (the heap
+    is a dense masked argmin), an exact Eq. 9 windowed aggregate update and
+    constraint check at pop time, and blocking — only the ``hops`` alive
+    neighbours on each side get their impact recomputed (ReHeap)."""
+    _check_supported(cfg)
+    dev = _device(device)
+    x = torch.as_tensor(x, dtype=cfg.tdtype()).to(dev)
+    n = x.shape[0]
+    carry, p0 = _sequential_init(x, cfg)
+    probe, body = _sequential_fns(cfg, n, p0)
+    carry = _run_sequential(carry, probe, body,
+                            _SEQ_BLOCK if dev.type == "cuda" else 1)
+    (xr, alive, _, _, _, tbl, y, dev_, it, _) = carry
+    stat_new = _stat_transform(cfg)(acf_from_aggregates(tbl, y.shape[0]))
+    return CompressResult(kept=alive, xr=xr, deviation=dev_,
+                          n_kept=torch.sum(alive), iters=it, stat_orig=p0,
+                          stat_new=stat_new)
+
+
+# ---------------------------------------------------------------------------
 # public API
 # ---------------------------------------------------------------------------
 
@@ -537,16 +808,19 @@ def compress(x, cfg: CameoConfig, *, device="cuda") -> CompressResult:
     """Compress ``x`` under ``cfg`` on ``device`` (the card unless the
     caller asks for the CPU).  Trims a tail remainder so the length is
     divisible by ``kappa``."""
+    _check_supported(cfg)
     x = torch.as_tensor(x)
     if cfg.kappa > 1:
         x = x[:(x.shape[0] // cfg.kappa) * cfg.kappa]
+    if cfg.mode == "sequential":
+        return compress_sequential(x, cfg, device=device)
     return compress_rounds(x, cfg, device=device)
 
 
 def compress_batch(xs, cfg: CameoConfig, *args, **kwargs):
     """Batched multi-series compression: not ported yet."""
     raise NotImplementedError("compress_batch is " + _NOT_PORTED.format(
-        item="A3"))
+        item="A1"))
 
 
 def kept_points(res: CompressResult):

@@ -3,7 +3,8 @@ deviation measure reduced in-kernel (port of ``repro/kernels/acf_impact.py``).
 
 The port's form generalises the TPU kernel to a runtime valid length
 ``ny`` and to the Def. 2 index map ``yi = p // kappa``, so it serves the
-rounds mode's per-round ``single_impacts`` pass directly.
+rounds mode's per-round ``single_impacts`` pass (float32) and the
+sequential mode's ``init_impacts`` (float64) directly.
 ``acf_impact_cuda`` launches ``csrc/acf_impact.cu`` for card tensors and
 computes the plain version, :func:`acf_impact_plain`, for CPU tensors.
 """
@@ -15,6 +16,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 
 MEASURE_CODE = {"mae": 0, "rmse": 1, "cheb": 2}
+_SYMBOL = {torch.float32: "acf_impact_f32", torch.float64: "acf_impact_f64"}
 
 
 def acf_impact_plain(y, dval, agg_table, p0, *, L: int, measure: str = "mae",
@@ -40,7 +42,8 @@ def acf_impact_cuda(y, dval, agg_table, p0, *, L: int, measure: str = "mae",
 
     ``ny`` is the valid length of the zero-padded ``y`` (default its
     length); on the card pass it as a 1-element int32 device tensor so the
-    launch needs no host sync.
+    launch needs no host sync.  Every float operand has ``y``'s dtype,
+    float32 or float64.
     """
     if y.device.type != "cuda":
         return acf_impact_plain(y, dval, agg_table, p0, L=L, measure=measure,
@@ -49,12 +52,12 @@ def acf_impact_cuda(y, dval, agg_table, p0, *, L: int, measure: str = "mae",
         raise ValueError(f"kernel supports mae/rmse/cheb, got {measure!r}")
     if ny is None:
         ny = torch.full((1,), y.shape[0], dtype=torch.int32, device=y.device)
-    dev = y.device
+    dev, dt = y.device, y.dtype
+    _check(dt in _SYMBOL, f"y must be float32 or float64, got {dt}")
     for name, t in (("y", y), ("dval", dval), ("table", agg_table),
                     ("p0", p0)):
-        _check(t.device == dev and t.dtype == torch.float32
-               and t.is_contiguous(),
-               f"{name} must be a contiguous float32 tensor on {dev}")
+        _check(t.device == dev and t.dtype == dt and t.is_contiguous(),
+               f"{name} must be a contiguous {dt} tensor on {dev}")
     _check(isinstance(ny, torch.Tensor) and ny.device == dev
            and ny.dtype == torch.int32 and ny.numel() == 1,
            "ny must be a 1-element int32 tensor on the card")
@@ -64,8 +67,8 @@ def acf_impact_cuda(y, dval, agg_table, p0, *, L: int, measure: str = "mae",
            f"{tuple(y.shape)}, {tuple(dval.shape)}, kappa={kappa}")
     _check(tuple(agg_table.shape) == (5, L) and tuple(p0.shape) == (L,),
            f"table must be [5, {L}] and p0 [{L}]")
-    out = torch.empty((P,), dtype=torch.float32, device=dev)
-    fn = _build.bind("acf_impact", "acf_impact_f32", 6, 5)
+    out = torch.empty((P,), dtype=dt, device=dev)
+    fn = _build.bind("acf_impact", _SYMBOL[dt], 6, 5)
     _build.check(fn(y.data_ptr(), dval.data_ptr(), agg_table.data_ptr(),
                     p0.data_ptr(), ny.data_ptr(), out.data_ptr(), P, nyb, L,
                     kappa, MEASURE_CODE[measure],

@@ -26,6 +26,8 @@
 // are independent, so blocks share nothing.
 #include <cuda_runtime.h>
 
+#include "rn.cuh"
+
 namespace {
 
 __global__ void window_rows_kernel(const float* __restrict__ dyws,
@@ -52,13 +54,12 @@ __global__ void window_rows_kernel(const float* __restrict__ dyws,
     d[i] = dyws[static_cast<size_t>(k) * Wy + i];
   __syncthreads();
   for (int i = threadIdx.x; i < Wy; i += blockDim.x)
-    e[i] = __fmul_rn(d[i], 2.0f * ctx[L + i] + d[i]);
+    e[i] = rn::mul(d[i], rn::add(2.0f * ctx[L + i], d[i]));
   __syncthreads();
   const int ny = *ny_ptr;
-  const float tiny = 1e-30f;
-  // Products are rounded on their own (__fmul_rn, no fused multiply-add)
-  // and sums run first to last, as in the plain version, so the rows equal
-  // it bit for bit.
+  // Products are rounded on their own (rn.cuh, no fused multiply-add) and
+  // sums run first to last, as in the plain version, so the rows equal it
+  // bit for bit.
   for (int l = 1 + threadIdx.x; l <= L; l += blockDim.x) {
     // head keeps ys + j <= ny-1-l  <=>  j < ny - l - ys  (a prefix);
     // tail keeps ys + j >= l       <=>  j >= l - ys      (a suffix), taken
@@ -70,40 +71,26 @@ __global__ void window_rows_kernel(const float* __restrict__ dyws,
     for (int j = 0; j < Wy; ++j) {
       if (j == ch) { dsx = cd; dsx2 = ce; }
       if (j == ct) { cd_t = cd; ce_t = ce; }
-      cd += d[j];
-      ce += e[j];
+      cd = rn::add(cd, d[j]);
+      ce = rn::add(ce, e[j]);
       const float df = j + l < Wy ? d[j + l] : 0.0f;
-      dsxx += __fmul_rn(d[j], (ctx[L + j + l] + ctx[L + j - l]) + df);
+      dsxx = rn::add(dsxx, rn::mul(d[j], rn::add(
+          rn::add(ctx[L + j + l], ctx[L + j - l]), df)));
     }
     if (ch == Wy) { dsx = cd; dsx2 = ce; }
     if (ct == Wy) { cd_t = cd; ce_t = ce; }
-    const float sx = table[l - 1] + dsx;
-    const float sxl = table[L + l - 1] + (cd - cd_t);
-    const float sx2 = table[2 * L + l - 1] + dsx2;
-    const float sxl2 = table[3 * L + l - 1] + (ce - ce_t);
-    const float sxx = table[4 * L + l - 1] + dsxx;
-    const float m = static_cast<float>(ny - l);
-    const float num = __fmul_rn(m, sxx) - __fmul_rn(sx, sxl);
-    const float den2 = __fmul_rn(__fmul_rn(m, sx2) - __fmul_rn(sx, sx),
-                                 __fmul_rn(m, sxl2) - __fmul_rn(sxl, sxl));
-    const float rho = den2 > tiny ? num / sqrtf(fmaxf(den2, tiny)) : 0.0f;
-    row[l - 1] = rho;
+    row[l - 1] = rn::acf_rho(
+        rn::add(table[l - 1], dsx), rn::add(table[L + l - 1], rn::sub(cd, cd_t)),
+        rn::add(table[2 * L + l - 1], dsx2),
+        rn::add(table[3 * L + l - 1], rn::sub(ce, ce_t)),
+        rn::add(table[4 * L + l - 1], dsxx), static_cast<float>(ny - l));
   }
   __syncthreads();
   if (threadIdx.x == 0) {
     float acc = 0.0f;
-    for (int l = 0; l < L; ++l) {
-      const float diff = row[l] - p0[l];
-      if (measure == 0) {
-        acc += fabsf(diff);
-      } else if (measure == 1) {
-        acc += __fmul_rn(diff, diff);
-      } else {
-        acc = fmaxf(acc, fabsf(diff));
-      }
-    }
-    const float fl = static_cast<float>(L);
-    out[k] = measure == 0 ? acc / fl : (measure == 1 ? sqrtf(acc / fl) : acc);
+    for (int l = 0; l < L; ++l)
+      acc = rn::measure_step(measure, acc, rn::sub(row[l], p0[l]));
+    out[k] = rn::measure_final(measure, acc, L);
   }
 }
 

@@ -1,19 +1,28 @@
-"""Eq. 9 tier rows of the rounds mode — the window-rows half of
-``repro/kernels/fused_round.py``.
+"""Fused round kernels of the rounds mode (port of
+``repro/kernels/fused_round.py``): the Eq. 9 tier rows and the
+prefix-feasibility scan of ``select="scan"``.
 
-Each rounds-mode tier ranks up to ``cap`` multi-point segments exactly:
-one hypothetical ACF row per candidate delta window, applied alone.  The
-plain form (:func:`window_acf_rows` over :func:`_moment_deltas`) relies on
-the padded-bucket discipline — ``y`` is zero beyond ``ny`` and before 0,
-and deltas only touch valid positions — so the head/tail masks are
-contiguous cuts of the window axis and the bilinear term needs none.
-``window_rows_cuda`` gives what the rounds mode's tier ranking reads: each
-row reduced to its deviation from ``p0``.  It launches
-``csrc/window_rows.cu`` for card tensors and computes its plain version,
-``ref.measure_rows`` over :func:`window_acf_rows`, for CPU tensors (the
-backend choice itself sits beside the single-delta one in
-``core/cameo.py``).  The prefix-scan half (``prefix_devs``/
-``greedy_feasible``, ``select="scan"``) is not ported yet.
+Window rows.  Each rounds-mode tier ranks up to ``cap`` multi-point
+segments exactly: one hypothetical ACF row per candidate delta window,
+applied alone.  The plain form (:func:`window_acf_rows` over
+:func:`_moment_deltas`) relies on the padded-bucket discipline — ``y`` is
+zero beyond ``ny`` and before 0, and deltas only touch valid positions —
+so the head/tail masks are contiguous cuts of the window axis and the
+bilinear term needs none.  ``window_rows_cuda`` gives what the rounds
+mode's tier ranking reads: each row reduced to its deviation from ``p0``.
+It launches ``csrc/window_rows.cu`` for card tensors and computes its plain
+version, ``ref.measure_rows`` over :func:`window_acf_rows`, for CPU tensors.
+
+Prefix scan.  A scan round walks its K rank-ordered candidates once with
+the running reconstruction ``z``: per candidate the trial deviation of
+applying it on top of what was committed, then a commit — always
+(``greedy=False``: the prefix deviation curve) or only where the trial fits
+``eps`` (``greedy=True``).  ``prefix_devs_cuda`` launches
+``csrc/prefix_devs.cu`` for card tensors and computes its plain version,
+:func:`prefix_devs_plain` (the same exact walk), for CPU tensors.  The
+reference forms (:func:`prefix_acf_rows_ref`, the scan in
+:func:`greedy_feasible`) assume every earlier ``ok`` candidate applied, as
+the JAX package's do.
 """
 from __future__ import annotations
 
@@ -21,8 +30,18 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import ops as _ops
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.acf_impact import MEASURE_CODE
+
+
+def _cumsum_in_order(x):
+    """Inclusive prefix sums over the first axis, one term at a time
+    (``torch.cumsum``'s order is not specified)."""
+    out = [x[0]]
+    for k in range(1, x.shape[0]):
+        out.append(out[-1] + x[k])
+    return torch.stack(out)
 
 
 def _prefix_in_order(x):
@@ -172,3 +191,216 @@ def window_rows_cuda(y, dyws, ystarts, agg_table, ny, p0, *, L: int,
 
 
 window_rows_cuda.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# prefix scan (select="scan")
+# ---------------------------------------------------------------------------
+
+def prefix_moment_rows(y, dyws, ystarts, ok, ny, *, L: int):
+    """Per-candidate aggregate-delta rows ``[K, 5, L]`` under the running
+    reconstruction that applies every earlier ``ok`` candidate.
+
+    ``dyws [K, Wy]`` are the candidates' aggregate-space delta windows in
+    rank order, starting at ``ystarts [K]``; ``ok [K]`` gates which rank
+    positions apply.  ``y`` must be zero-padded beyond ``ny``.
+    """
+    K, Wy = dyws.shape
+    nyb = y.shape[0]
+    dt = y.dtype
+    d = dyws * ok.to(dt)[:, None]
+    starts = torch.clamp(ystarts, 0, nyb - 1).long()
+    # exclusive running delta field D_{<j}, as dense per-candidate rows
+    cols = starts[:, None] + torch.arange(Wy, device=y.device)[None, :]
+    place = torch.zeros((K, nyb + Wy), dtype=dt, device=y.device).scatter(
+        1, cols, d)[:, :nyb]
+    d_ex = _cumsum_in_order(place) - place
+    # per-candidate context of the running reconstruction z = y + D_{<j}
+    kk = torch.arange(Wy + 2 * L, device=y.device)
+    gidx = starts[:, None] + kk[None, :]
+    ctx = F.pad(y, (L, L + Wy))[gidx] + torch.gather(
+        F.pad(d_ex, (L, L + Wy)), 1, gidx)
+    return _moment_deltas(d, ctx, ystarts, ny, L=L)
+
+
+def prefix_acf_rows_ref(y, dyws, ystarts, ok, agg_table, ny, *, L: int):
+    """ACF rows ``[K, L]`` after each rank prefix of windowed removals (see
+    :func:`prefix_moment_rows`)."""
+    dt = y.dtype
+    cum = _cumsum_in_order(prefix_moment_rows(y, dyws, ystarts, ok, ny, L=L))
+    cum = cum + agg_table[None]
+    l = torch.arange(1, L + 1, device=y.device)
+    m = (ny - l).to(dt)[None, :]
+    return _ref.acf_from_moments(cum[:, 0], cum[:, 1], cum[:, 2],
+                                 cum[:, 3], cum[:, 4], m)
+
+
+def prefix_devs_plain(y, dyws, ystarts, ok, agg_table, p0, ny, eps=None, *,
+                      L: int, measure: str = "mae", greedy: bool = False):
+    """Plain version of the ``prefix_devs`` kernel: the TPU kernel's walk.
+
+    The running reconstruction ``z`` (``y`` padded by L on the left and
+    L + Wy on the right) and the running moment table start from ``y`` and
+    ``agg_table``; candidate k's delta ``dyws[k] * ok[k]`` at
+    ``clip(ystarts[k], 0, nyb - 1)`` gives trial moments (window sums
+    first to last) and the trial deviation ``devs[k]``.  Then the candidate
+    commits to ``z`` and to the table: always (``greedy=False``) or where
+    ``ok[k] & (devs[k] <= eps)`` (``greedy=True``).  Returns ``devs [K]``.
+    """
+    K, Wy = dyws.shape
+    nyb = y.shape[0]
+    dt = y.dtype
+    dev = y.device
+    z = F.pad(y, (L, L + Wy))
+    agg5 = agg_table
+    starts = torch.clamp(ystarts, 0, nyb - 1).long()
+    okf = ok.to(dt)
+    eps = torch.as_tensor(float("inf") if eps is None else eps, dtype=dt,
+                          device=dev)
+    j = torch.arange(Wy, device=dev)
+    l = torch.arange(1, L + 1, device=dev)
+    at = L + j                                         # z index of y[s + j]
+    fwd = (L + l)[:, None] + j[None, :]                # [L, Wy]: y[s+j+l]
+    bwd = (L - l)[:, None] + j[None, :]                #          y[s+j-l]
+    dsh = l[:, None] + j[None, :]                      # d[j + l]
+    m = (ny - l).to(dt)
+    devs = []
+    for k in range(K):
+        s = starts[k]
+        d = dyws[k] * okf[k]
+        zat = z[s + at]
+        e = d * (2.0 * zat + d)
+        t = s + j
+        head = (t[None, :] <= (ny - 1 - l)[:, None]).to(dt)      # [L, Wy]
+        tail = (t[None, :] >= l[:, None]).to(dt)
+        inner = (z[s + fwd] * head + z[s + bwd] * tail) \
+            + F.pad(d, (0, L))[dsh] * head
+        terms = torch.stack([d * head, d * tail, e * head, e * tail,
+                             d * inner])                          # [5, L, Wy]
+        trial = agg5 + _ref.sum_in_order(terms)
+        rho = _ref.acf_from_table(trial, m)
+        dk = _ref.measure_rows(rho[None], p0, measure)[0]
+        devs.append(dk)
+        take = (okf[k] > 0) & (dk <= eps) if greedy else torch.ones(
+            (), dtype=torch.bool, device=dev)
+        z = z.index_put((s + at,), zat + take.to(dt) * d)
+        agg5 = torch.where(take, trial, agg5)
+    return torch.stack(devs)
+
+
+_PREFIX_SYMBOL = {torch.float32: "prefix_devs_f32",
+                  torch.float64: "prefix_devs_f64"}
+# dynamic shared memory a block may use on the H100 (227 KB, less a margin
+# for the kernel's static shared variables)
+_SMEM_LIMIT = 232448 - 1024
+
+
+def prefix_devs_cuda(y, dyws, ystarts, ok, agg_table, p0, ny, eps=None, *,
+                     L: int, measure: str = "mae", greedy: bool = False):
+    """Per-rank deviations ``[K]`` of the prefix walk (see
+    :func:`prefix_devs_plain`): the CUDA kernel for card tensors, the plain
+    version for CPU tensors.
+
+    On the card the float operands share one dtype (float64 on the scan
+    path), ``ystarts`` is int32, ``ok`` bool, and ``ny`` and ``eps`` are
+    1-element device tensors (int32 and the float dtype), so the launch
+    needs no host sync.  ``z`` sits in shared memory while it fits the
+    block's 227 KB, else in a global scratch buffer on the same code path.
+    """
+    if y.device.type != "cuda":
+        return prefix_devs_plain(y, dyws, ystarts, ok, agg_table, p0, ny, eps,
+                                 L=L, measure=measure, greedy=greedy)
+    dev, dt = y.device, y.dtype
+    if measure not in MEASURE_CODE:
+        raise ValueError(f"prefix_devs reduces mae/rmse/cheb, got {measure!r}")
+    if dt not in _PREFIX_SYMBOL:
+        raise ValueError(f"prefix_devs: y must be float32 or float64, got {dt}")
+    if eps is None:
+        eps = torch.full((1,), float("inf"), dtype=dt, device=dev)
+    for name, t, want in (("y", y, dt), ("dyws", dyws, dt),
+                          ("table", agg_table, dt), ("p0", p0, dt),
+                          ("eps", eps, dt), ("ystarts", ystarts, torch.int32),
+                          ("ok", ok, torch.bool), ("ny", ny, torch.int32)):
+        if not (isinstance(t, torch.Tensor) and t.device == dev
+                and t.dtype == want and t.is_contiguous()):
+            raise ValueError(f"prefix_devs: {name} must be a contiguous "
+                             f"{want} tensor on {dev}")
+    K, Wy = dyws.shape
+    nyb = y.shape[0]
+    if (y.dim() != 1 or tuple(ystarts.shape) != (K,)
+            or tuple(ok.shape) != (K,) or ny.numel() != 1
+            or eps.numel() != 1 or tuple(agg_table.shape) != (5, L)
+            or tuple(p0.shape) != (L,) or Wy < 1):
+        raise ValueError(
+            f"prefix_devs: shapes y {tuple(y.shape)}, dyws {tuple(dyws.shape)}"
+            f", ystarts {tuple(ystarts.shape)}, ok {tuple(ok.shape)}, table "
+            f"{tuple(agg_table.shape)}, p0 {tuple(p0.shape)} do not fit L={L}")
+    out = torch.empty((K,), dtype=dt, device=dev)
+    if K == 0:
+        return out
+    zlen = nyb + 2 * L + Wy
+    item = y.element_size()
+    use_smem = (11 * L + 2 * Wy + zlen) * item <= _SMEM_LIMIT
+    scratch = (torch.empty((1,), dtype=dt, device=dev) if use_smem
+               else torch.empty((zlen,), dtype=dt, device=dev))
+    fn = _build.bind("prefix_devs", _PREFIX_SYMBOL[dt], 10, 7)
+    _build.check(fn(y.data_ptr(), dyws.data_ptr(), ystarts.data_ptr(),
+                    ok.data_ptr(), agg_table.data_ptr(), p0.data_ptr(),
+                    ny.data_ptr(), eps.data_ptr(), out.data_ptr(),
+                    scratch.data_ptr(), K, Wy, nyb, L, MEASURE_CODE[measure],
+                    int(greedy), int(use_smem),
+                    torch.cuda.current_stream(dev).cuda_stream),
+                 "prefix_devs")
+    prefix_devs_cuda.launches += 1
+    return out
+
+
+prefix_devs_cuda.launches = 0
+
+
+def prefix_devs(cfg, y, dyws, ystarts, ok, agg, p0, ny):
+    """Backend-dispatched deviation curve for one round's rank prefix: the
+    kernel for eligible configurations on the card (``ny`` a 1-element
+    int32 device tensor there), the reference rows elsewhere."""
+    table = _ops.agg_to_table(agg)
+    L = cfg.lags
+    if _ops._kernel_eligible(cfg.backend, cfg.stat, cfg.measure, y.device):
+        return prefix_devs_cuda(y, dyws, ystarts, ok, table, p0, ny, L=L,
+                                measure=cfg.measure)
+    rows = prefix_acf_rows_ref(y, dyws, ystarts, ok, table, ny, L=L)
+    return _ops._rows_dev(cfg, rows, p0)
+
+
+def greedy_feasible(cfg, y, dyws, ystarts, ok, agg, p0, ny, eps):
+    """Backend-dispatched greedy feasible-subset selection for one round:
+    walk the rank-ordered candidates once, committing each whose trial
+    deviation on top of the committed set stays within ``eps`` (violators
+    are skipped).  Returns ``(take [K] bool, devs [K])``.
+
+    The kernel (eligible configurations on the card) keeps the exact
+    committed reconstruction.  The reference form scans aggregate-delta
+    rows whose contexts assume every earlier ``ok`` candidate applied, so a
+    skip leaves a small bilinear error in later rows; callers re-validate
+    the subset with the dense update.
+    """
+    table = _ops.agg_to_table(agg)
+    L = cfg.lags
+    dt = y.dtype
+    if _ops._kernel_eligible(cfg.backend, cfg.stat, cfg.measure, y.device):
+        devs = prefix_devs_cuda(y, dyws, ystarts, ok, table, p0, ny, eps,
+                                L=L, measure=cfg.measure, greedy=True)
+        return ok & (devs <= eps), devs
+    dagg = prefix_moment_rows(y, dyws, ystarts, ok, ny, L=L)
+    l = torch.arange(1, L + 1, device=y.device)
+    m = (ny - l).to(dt)
+    cum = table
+    takes, devs = [], []
+    for k in range(dagg.shape[0]):
+        trial = cum + dagg[k]
+        rho = _ref.acf_from_table(trial, m)
+        dev = _ops._rows_dev(cfg, rho[None], p0)[0]
+        take = ok[k] & (dev <= eps)
+        cum = torch.where(take, trial, cum)
+        takes.append(take)
+        devs.append(dev)
+    return torch.stack(takes), torch.stack(devs)

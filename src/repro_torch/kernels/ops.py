@@ -1,10 +1,14 @@
 """Impact-engine backend: one dispatch point for the impact and aggregate
-math of the rounds mode (port of ``repro/kernels/ops.py``).
+math of the compressor (port of ``repro/kernels/ops.py``): Eq. 7 lagged
+products, Algorithm-2 single-delta impacts (Eq. 8), exact windowed impacts
+(Eq. 9) and the GetAllImpact ranking of both modes.
 
 Backends, chosen per call and plumbed from ``CameoConfig.backend``:
 
 * ``"cuda"``      — the hand-written kernels (``lag_dot``, ``acf_impact``,
-  ``fused_round.window_rows_cuda``).  Asking for it with CPU tensors raises.
+  ``acf_window_impact``, ``fused_round.window_rows_cuda`` and
+  ``fused_round.prefix_devs_cuda``).  Asking for it with CPU tensors
+  raises.
 * ``"reference"`` — the plain PyTorch forms, on whatever device the
   tensors lie.
 * ``"auto"``      — the kernels for card tensors, the plain forms for CPU
@@ -13,15 +17,21 @@ Backends, chosen per call and plumbed from ``CameoConfig.backend``:
 
 The kernels serve ``stat="acf"`` with the measures ``mae | rmse | cheb``
 reduced in-kernel.  Other configurations compute the rows in plain torch
-whatever the backend, as the JAX package does.
+whatever the backend, as the JAX package does.  Where a kernel serves a
+configuration, the plain path computes the kernel's plain version (fixed
+summation order), so the CPU and the card rank alike.
 """
 from __future__ import annotations
 
 import os
 
 import torch
+import torch.nn.functional as F
 
+from repro_torch.core import measures as _measures
 from repro_torch.kernels import ref as _ref
+from repro_torch.kernels.acf_impact import acf_impact_cuda
+from repro_torch.kernels.acf_window_impact import acf_window_impact_cuda
 from repro_torch.kernels.lag_dot import lag_dot_cuda, lag_dot_plain
 
 BACKENDS = ("auto", "cuda", "reference")
@@ -85,6 +95,182 @@ def lag_dot(a: torch.Tensor, L: int, *, b=None, halo=None,
     if resolve_backend(backend, a.device) == "cuda":
         return lag_dot_cuda(a, b, halo, L=L)
     return lag_dot_plain(a, b, halo, L=L)
+
+
+# ---------------------------------------------------------------------------
+# Eq. 9 — windowed impacts
+# ---------------------------------------------------------------------------
+
+def window_impact(y, dwins, starts, agg, p0, *, measure: str = "mae",
+                  backend: str = "auto"):
+    """Exact Eq. 9 impacts ``[P]`` for P candidate windows against ``y``:
+    ``dwins [P, W]`` are zero-padded delta windows starting at the absolute
+    indices ``starts [P]``."""
+    table = agg_to_table(agg)
+    L = p0.shape[0]
+    ny = y.shape[0]
+    rows_ctx = _ref.candidate_contexts(y, starts, L=L, W=dwins.shape[1])
+    if resolve_backend(backend, y.device) == "cuda":
+        return acf_window_impact_cuda(
+            rows_ctx.contiguous(), dwins.contiguous(),
+            starts.to(torch.int32).contiguous(), table.contiguous(), p0,
+            ny=ny, L=L, measure=measure)
+    return _ref.acf_window_impact_ref(rows_ctx, dwins, starts, table, p0,
+                                      ny=ny, measure=measure)
+
+
+# ---------------------------------------------------------------------------
+# ranking engine — GetAllImpact for the compressor
+# ---------------------------------------------------------------------------
+
+def _measure_transform(cfg):
+    return _measures.get_measure(cfg.measure), _transform_fn(cfg.stat)
+
+
+def _rows_dev(cfg, rows, p0):
+    """Deviation of ``[P, L]`` ACF rows from ``p0``: the kernels' fixed-order
+    reduction where a kernel serves the configuration, else the measure
+    over the transformed rows."""
+    if cfg.stat == "acf" and cfg.measure in _ref.KERNEL_MEASURES:
+        return _ref.measure_rows(rows, p0, cfg.measure)
+    mfn, transform = _measure_transform(cfg)
+    return mfn(transform(rows), p0)
+
+
+def _single_impacts_kernel(cfg, table, y, dval, p0):
+    """Kernel-path Eq. 8 impacts for all n x-candidates (the port's kernel
+    takes the ``i // kappa`` map itself, so every kappa is one launch)."""
+    return acf_impact_cuda(y, dval, table.contiguous(), p0, L=cfg.lags,
+                           measure=cfg.measure, kappa=cfg.kappa)
+
+
+def _single_impacts_ref(cfg, agg, y, y_idx, dval, p0, n: int):
+    """Plain-path Eq. 8 impacts, chunked as the JAX package chunks them."""
+    chunk = min(cfg.impact_chunk, n)
+    out = []
+    for c in range(0, n, chunk):
+        rows = _ref.acf_after_single_delta(agg, y, y_idx[c:c + chunk],
+                                           dval[c:c + chunk])
+        out.append(_rows_dev(cfg, rows, p0))
+    return torch.cat(out)
+
+
+def _rank_single(cfg, agg, y, xr, alive, p0, n: int):
+    """Algorithm-2 (single-delta) ranking impact for all n points."""
+    from repro_torch.core.aggregates import alive_neighbors, interpolate_at
+    dt = cfg.tdtype()
+    idx = torch.arange(n, dtype=torch.int32, device=xr.device)
+    prev, nxt = alive_neighbors(alive)
+    dx = interpolate_at(xr, prev, nxt, idx) - xr
+    if cfg.kappa == 1:
+        y_idx, dval = idx, dx
+    else:
+        y_idx = idx // cfg.kappa
+        dval = _ref.div_exact(dx, cfg.kappa)
+    if _kernel_eligible(cfg.backend, cfg.stat, cfg.measure, xr.device):
+        imp = _single_impacts_kernel(cfg, agg_to_table(agg), y, dval, p0)
+    else:
+        imp = _single_impacts_ref(cfg, agg, y, y_idx, dval, p0, n)
+    removable = alive & (idx > 0) & (idx < n - 1)
+    return torch.where(removable, imp.to(dt), float("inf"))
+
+
+def _window_chunk(cfg, agg, y_ctx, ystart, dyw, p0, off, ny: int,
+                  use_kernel: bool):
+    """Eq. 9 impacts for one chunk of candidates against a 1-D haloed
+    context ``y_ctx`` (``y_ctx[k] = y_local[k - L]``, zeros out of range)."""
+    L = cfg.lags
+    if use_kernel:
+        k = torch.arange(dyw.shape[1] + 2 * L, device=y_ctx.device)
+        rows_ctx = y_ctx[ystart[:, None] + k[None, :]]       # [c, Wy + 2L]
+        return acf_window_impact_cuda(
+            rows_ctx, dyw.contiguous(), (off + ystart).to(torch.int32),
+            agg_to_table(agg).contiguous(), p0, ny=ny, L=L,
+            measure=cfg.measure)
+    rows = _ref.acf_after_window_delta_ctx(agg, y_ctx, ystart, dyw, ny=ny,
+                                           off=off)
+    return _rows_dev(cfg, rows, p0)
+
+
+def _rank_window_ctx(cfg, agg, y_ctx, xr_loc, alive_loc, p0, off_y, ny: int,
+                     fallback: str):
+    """Exact windowed (Eq. 9) ranking impact for all local candidates.
+
+    ``y_ctx`` is the 1-D haloed target context (L left halo, >= L + W right
+    pad), ``off_y`` the chunk's global y offset.  Candidates whose segment
+    outgrew the static window ``W`` either take the single-delta estimate
+    (``fallback="single"``, done by :func:`ranking_impact`) or rank +inf
+    (``fallback="inf"``, the partitioned mode).  Returns
+    ``(impact, overgrown)``.
+    """
+    from repro_torch.core.aggregates import alive_neighbors, segment_deltas
+    dt = cfg.tdtype()
+    W = cfg.window
+    mx = xr_loc.shape[0]
+    idx = torch.arange(mx, dtype=torch.int32, device=xr_loc.device)
+    prev, nxt = alive_neighbors(alive_loc)
+    use_kernel = _kernel_eligible(cfg.backend, cfg.stat, cfg.measure,
+                                  xr_loc.device)
+    chunk = min(cfg.impact_chunk, mx)
+    imps, spans = [], []
+    for c in range(0, mx, chunk):
+        dwin, start, span = segment_deltas(xr_loc, prev, nxt,
+                                           idx[c:c + chunk], W)
+        dyw, ystart = x_window_to_y(cfg, dwin, start)
+        imps.append(_window_chunk(cfg, agg, y_ctx, ystart, dyw, p0, off_y,
+                                  ny, use_kernel).to(dt))
+        spans.append(span)
+    imp, span = torch.cat(imps), torch.cat(spans)
+    overgrown = span > W
+    if fallback == "inf":
+        imp = torch.where(overgrown, float("inf"), imp)
+    removable = alive_loc & (idx > 0) & (idx < mx - 1)
+    return torch.where(removable, imp, float("inf")), overgrown
+
+
+def ranking_impact(cfg, agg, y, xr, alive, p0, n: int, *, rank=None):
+    """GetAllImpact: ranking impact for every point of a whole series, by
+    ``rank`` (default ``cfg.rank``): ``"single"`` the Algorithm-2 Eq. 8
+    approximation, ``"window"`` the exact Eq. 9 segment form with the
+    single-delta estimate for overgrown segments."""
+    rank = cfg.rank if rank is None else rank
+    if rank == "single":
+        return _rank_single(cfg, agg, y, xr, alive, p0, n)
+    if rank != "window":
+        raise ValueError(f"unknown rank {rank!r}")
+    L, W = cfg.lags, cfg.window
+    y_ctx = F.pad(y, (L, L + W))
+    imp, overgrown = _rank_window_ctx(cfg, agg, y_ctx, xr, alive, p0, 0,
+                                      y.shape[0], fallback="single")
+    imp_sd = _rank_single(cfg, agg, y, xr, alive, p0, n)
+    return torch.where(overgrown, imp_sd, imp).to(cfg.tdtype())
+
+
+def chunk_ranking_impact(cfg, agg, y_ctx, xr_c, alive_c, p0, off_y, ny: int):
+    """Partitioned-mode ranking: exact windowed impacts for one partition's
+    candidates (overgrown segments rank +inf)."""
+    imp, _ = _rank_window_ctx(cfg, agg, y_ctx, xr_c, alive_c, p0, off_y, ny,
+                              fallback="inf")
+    return imp
+
+
+def window_impact_at(cfg, agg, y, xr, prev, nxt, cand, p0):
+    """Exact (Eq. 9) ranking impact of removing each point in ``cand`` (the
+    sequential mode's ReHeap).  Overgrown segments and the series
+    endpoints rank +inf."""
+    from repro_torch.core.aggregates import segment_deltas
+    n = xr.shape[0]
+    L, W = cfg.lags, cfg.window
+    dwin, start, span = segment_deltas(xr, prev, nxt, cand, W)
+    dyw, ystart = x_window_to_y(cfg, dwin, start)
+    y_ctx = F.pad(y, (L, L + W))
+    use_kernel = _kernel_eligible(cfg.backend, cfg.stat, cfg.measure,
+                                  xr.device)
+    imp = _window_chunk(cfg, agg, y_ctx, ystart, dyw, p0, 0, y.shape[0],
+                        use_kernel)
+    interior = (cand > 0) & (cand < n - 1)
+    return torch.where((span <= W) & interior, imp.to(cfg.tdtype()),
+                       float("inf"))
 
 
 # ---------------------------------------------------------------------------

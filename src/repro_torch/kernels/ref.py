@@ -146,6 +146,95 @@ def acf_impact_ref(y, dval, agg_table, p0, *, L: int, measure: str = "mae"):
 
 
 # ---------------------------------------------------------------------------
+# Eq. 9 — hypothetical ACF after a windowed (segment) delta
+# ---------------------------------------------------------------------------
+
+def _window_delta_acf(agg, dwins, abs_t, y_at, y_fwd, y_bwd, *, ny: int):
+    """Shared Eq. 9 core: hypothetical ACF ``[P, L]`` from per-candidate
+    delta windows ``dwins [P, W]`` at global positions ``abs_t [P, W]``,
+    the series at the window ``y_at [P, W]`` and its lag-shifted values
+    ``y_fwd``/``y_bwd [P, W, L]`` (zero out of range).
+
+    The five moment deltas are masked sums over the window, taken first to
+    last (:func:`sum_in_order`) with every product rounded on its own: the
+    ``acf_window_impact`` kernel repeats this arithmetic bit for bit.
+    """
+    L = agg[0].shape[-1]
+    P, W = dwins.shape
+    dtype = y_at.dtype
+    head, tail = head_tail_masks(abs_t, ny, L, dtype)        # [P, W, L]
+    d = dwins[..., None]                                     # [P, W, 1]
+    e = dwins * (2.0 * y_at + dwins)
+    d_fwd = F.pad(dwins, (0, L)).unfold(1, W, 1)[:, 1:]      # [P, L, W]
+    d_fwd = d_fwd.transpose(1, 2)                            # d[j + l]
+    inner = (y_fwd * head + y_bwd * tail) + d_fwd * head
+    terms = torch.stack([d * head, d * tail, e[..., None] * head,
+                         e[..., None] * tail, d * inner], dim=2)
+    rows = as_table(agg)[None] + sum_in_order(terms, dim=1)  # [P, 5, L]
+    l = torch.arange(1, L + 1, device=dwins.device)
+    m = (ny - l).to(dtype)[None, :]
+    return acf_from_table(rows, m)
+
+
+def acf_after_window_delta_ctx(agg, y_ctx: torch.Tensor, starts: torch.Tensor,
+                               dwins: torch.Tensor, *, ny: int,
+                               off) -> torch.Tensor:
+    """Hypothetical ACF ``[P, L]`` after applying each candidate's windowed
+    delta independently (Eq. 9) against a 1-D context: ``y_ctx`` is a local
+    chunk with L-point halos on each side (and W right padding), ``starts``
+    local indices and ``off`` the chunk's global offset; out-of-series
+    context positions must be zero."""
+    L = agg[0].shape[-1]
+    _, W = dwins.shape
+    dev = dwins.device
+    j = torch.arange(W, device=dev)
+    l = torch.arange(1, L + 1, device=dev)
+    loc_t = starts[:, None] + j[None, :]                     # [P, W] local
+    abs_t = off + loc_t                                      # [P, W] global
+    y_at = y_ctx[loc_t + L]
+    y_fwd = y_ctx[loc_t[..., None] + L + l]                  # [P, W, L]
+    y_bwd = y_ctx[loc_t[..., None] + L - l]
+    return _window_delta_acf(agg, dwins, abs_t, y_at, y_fwd, y_bwd, ny=ny)
+
+
+def candidate_contexts(y: torch.Tensor, starts: torch.Tensor, *, L: int,
+                       W: int) -> torch.Tensor:
+    """Per-candidate ``[P, W + 2L]`` context windows for the windowed
+    kernel: ``ctx[p, k] = y[starts[p] - L + k]``, zeros out of range, with
+    the starts clipped into ``[0, len(y)]``."""
+    y_pad = F.pad(y, (L, L + W))
+    k = torch.arange(W + 2 * L, device=y.device)
+    return y_pad[torch.clamp(starts[:, None], 0, y.shape[0]) + k[None, :]]
+
+
+def acf_after_window_delta_rows(agg, y_rows: torch.Tensor,
+                                starts_abs: torch.Tensor,
+                                dwins: torch.Tensor, *, ny: int):
+    """Eq. 9 hypothetical ACF ``[P, L]`` from per-candidate
+    ``[P, W + 2L]`` context rows (the kernel's input layout, see
+    :func:`candidate_contexts`) and global starts."""
+    L = agg[0].shape[-1]
+    _, W = dwins.shape
+    dev = dwins.device
+    j = torch.arange(W, device=dev)
+    l = torch.arange(1, L + 1, device=dev)
+    abs_t = starts_abs[:, None] + j[None, :]                 # [P, W] global
+    y_at = y_rows[:, L:L + W]
+    y_fwd = y_rows[:, L + j[:, None] + l[None, :]]           # [P, W, L]
+    y_bwd = y_rows[:, L + j[:, None] - l[None, :]]
+    return _window_delta_acf(agg, dwins, abs_t, y_at, y_fwd, y_bwd, ny=ny)
+
+
+def acf_window_impact_ref(y_rows, dwins, starts_abs, agg_table, p0, *,
+                          ny: int, measure: str = "mae"):
+    """Oracle for ``kernels.acf_window_impact``: exact Eq. 9 impacts
+    ``[P]`` (``measure_rows`` over :func:`acf_after_window_delta_rows`)."""
+    rows = acf_after_window_delta_rows(agg_table, y_rows, starts_abs, dwins,
+                                       ny=ny)
+    return measure_rows(rows, p0, measure)
+
+
+# ---------------------------------------------------------------------------
 # Eq. 7 — lagged products (ExtractAggregates hot term), cross/halo'd form
 # ---------------------------------------------------------------------------
 

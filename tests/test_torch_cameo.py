@@ -273,11 +273,13 @@ def test_decompress_without_device_needs_cuda(monkeypatch):
 
 
 def test_unported_surfaces_raise():
+    """compress_batch is not ported yet; the sequential mode and
+    select="scan" are, and run."""
     x = _series(128)
-    for cfg in (tc.CameoConfig(mode="sequential"),
-                tc.CameoConfig(select="scan")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tc.compress(x, cfg, device="cpu")
+    for cfg in (tc.CameoConfig(mode="sequential", lags=8),
+                tc.CameoConfig(select="scan", lags=8)):
+        res = tc.compress(x, cfg, device="cpu")
+        assert res.kept.shape == (128,) and bool(res.kept[0] & res.kept[-1])
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tc.compress_batch(np.stack([x, x]), tc.CameoConfig())
 
@@ -342,21 +344,27 @@ def test_chip_smoke_phases_rehearsal():
     wrapper takes its plain version (the script itself refuses to run
     without a card)."""
     import chip_smoke
-    report = chip_smoke.run_phases("cpu", uk_length=512, aus_length=48 * 48,
-                                   log=lambda s: None)
+    report = chip_smoke.run_phases(
+        "cpu", uk_length=512, aus_length=48 * 48,
+        seq_lengths={"uk_elec": 256, "aus_elec": 48 * 12}, log=lambda s: None)
+    per_set = ("lag_dot", "acf_impact", "window_rows", "acf_impact",
+               "acf_window_impact")
     assert [(k["dataset"], k["name"]) for k in report["kernels"]] == [
         (d, k) for d in ("uk_elec", "aus_elec")
-        for k in ("lag_dot", "acf_impact", "window_rows")]
+        for k in per_set + (("acf_window_impact",) if d == "uk_elec"
+                            else ()) + ("prefix_devs",)]
     assert all(k["max_abs_err"] == 0.0 for k in report["kernels"])
     rows = chip_smoke.kernel_rows(report)
-    assert [len(r["shapes"]) for r in rows] == [2, 2, 2]
+    assert [r["name"] for r in rows] == list(chip_smoke.WRAPPERS)
+    assert [len(r["shapes"]) for r in rows] == [2, 4, 2, 3, 2]
     div = chip_smoke.first_divergence("cpu", length=48 * 48)
     assert div["parted"] is None and div["init"] == {}
     assert div["lockstep_rounds_differing"] == 0
-    assert div["rounds_cpu"] == report["runs"][1]["rounds"]
-    assert [r["dataset"] for r in report["runs"]] == ["uk_elec", "aus_elec"]
-    assert report["launches"] == {"lag_dot": 0, "acf_impact": 0,
-                                  "window_rows": 0}
+    assert div["rounds_cpu"] == report["runs"][1]["iters"]
+    assert [(r["dataset"], r["path"]) for r in report["runs"]] == [
+        (d, p) for p in ("rounds", "scan", "sequential")
+        for d in ("uk_elec", "aus_elec")]
+    assert report["launches"] == dict.fromkeys(chip_smoke.WRAPPERS, 0)
     json.dumps(report)
     out = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py")],
                          capture_output=True, text=True, timeout=120,

@@ -1,0 +1,450 @@
+"""The port's ``select="scan"`` and its prefix-walk kernel against the JAX
+package.
+
+(a) ``prefix_devs_plain`` (the CUDA kernel's plain version), greedy and
+    not, against ``prefix_devs_pallas`` in interpret mode on
+    ``tests/test_backend.py``'s ``_prefix_setup``, and the greedy walk
+    against that file's numpy oracle (from-scratch ACF per trial);
+(b) the reference forms (``prefix_moment_rows``, ``prefix_acf_rows_ref``,
+    ``prefix_devs``, ``greedy_feasible``) against JAX;
+(c) ``greedy_take`` (the card's greedy branch) driven by the plain version
+    against a numpy transcription of ``src/repro/core/cameo.py:470-483``;
+(d) the deviation's gradient against ``jax.grad`` (the linearized
+    packing), including round 0, where PyTorch's own derivative of ``abs``
+    at 0 would rank differently;
+(e) ``compress(select="scan")`` against JAX's CPU scan (the linearized
+    branch) round by round and end to end: kept masks and iters
+    identical, deviation within 1e-12.
+
+As in ``tests/test_torch_cameo.py``, JAX's default compilation ("jit")
+parts from the op-by-op values the port computes at float32 ranking
+near-ties; those cases are held to JAX compiled without XLA's float32
+rewrites ("strict", in a subprocess) or run op by op (ROADMAP.md C).
+"""
+import dataclasses
+import functools
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import cameo as jc
+from repro.core import measures as j_measures
+from repro.core.acf import acf as j_acf
+from repro.core.acf import acf_from_aggregates, extract_aggregates
+from repro.kernels import fused_round as j_fused
+from repro.kernels import ops as j_ops
+from repro_torch import convert
+from repro_torch.core import cameo as tc
+from repro_torch.core.acf import acf_from_aggregates as t_acf_from_aggregates
+from repro_torch.kernels import fused_round as t_fused
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)          # chip_smoke.py, at the repository root
+STRICT_XLA_FLAGS = ("--xla_disable_hlo_passes=algsimp "
+                    "--xla_backend_optimization_level=0")
+FIELDS = ("xr", "alive", "prev", "nxt", "y", "tbl", "alpha", "dev", "rounds",
+          "done", "blocked", "retried", "saw_c")
+
+
+def T(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _series(n, seed=0):
+    rng = np.random.default_rng(seed)
+    t = np.arange(n)
+    return (np.sin(2 * np.pi * t / 24) + 0.5 * np.sin(2 * np.pi * t / 168)
+            + 0.15 * rng.standard_normal(n))
+
+
+def _prefix_setup(seed=9, nyb=160, ny=150, K=12, Wy=16, L=8):
+    """``tests/test_backend.py``'s fused-round inputs: y zero-padded beyond
+    ny, candidate windows inside [0, ny)."""
+    rng = np.random.default_rng(seed)
+    y = np.zeros(nyb)
+    y[:ny] = _series(ny, seed=seed)
+    starts = rng.integers(0, ny - Wy, size=K).astype(np.int32)
+    dyws = 0.1 * rng.standard_normal((K, Wy))
+    ok = rng.random(K) > 0.25
+    agg = extract_aggregates(jnp.asarray(y[:ny]), L)
+    p0 = np.asarray(acf_from_aggregates(agg, ny))
+    table = np.asarray(j_ops.agg_to_table(agg))
+    return y, dyws, starts, ok, table, p0
+
+
+# end-to-end cases -> the JAX compilation the port is held to
+E2E = {"k1": "jit", "k4": "strict", "rmse": "strict", "cheb": "strict",
+       "target_cr": "jit", "first_violation": "jit", "single": "jit"}
+OPTS = {"k1": dict(), "k4": dict(kappa=4), "rmse": dict(measure="rmse"),
+        "cheb": dict(measure="cheb"), "target_cr": dict(target_cr=6.0),
+        "first_violation": dict(stop_policy="first_violation"),
+        "single": dict(rank="single"), "pacf": dict(stat="pacf")}
+
+
+def _cfg(name):
+    return jc.CameoConfig(eps=0.02, lags=12, select="scan",
+                          backend="reference", **OPTS[name])
+
+
+def _reference_main(out_path, jobs):
+    """Subprocess entry: JAX's end-to-end results for ``jobs``, saved as
+    npz (the caller picks the compilation through XLA_FLAGS)."""
+    jax.config.update("jax_enable_x64", True)
+    res = {}
+    for job in jobs:
+        r = jc.compress_rounds(jnp.asarray(_series(768, 4)), _cfg(job))
+        res[f"{job}/kept"] = np.asarray(r.kept)
+        res[f"{job}/iters"] = np.asarray(r.iters)
+        res[f"{job}/deviation"] = np.asarray(r.deviation)
+    np.savez(out_path, **res)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
+@pytest.fixture(scope="module")
+def strict(tmp_path_factory):
+    """JAX's "strict" end-to-end results, computed in a subprocess started
+    when the first test asks for them."""
+    out = tmp_path_factory.mktemp("jax_strict") / "strict.npz"
+    env = dict(os.environ, JAX_PLATFORMS="cpu", JAX_ENABLE_X64="1",
+               PYTHONPATH=os.path.join(ROOT, "src"),
+               XLA_FLAGS=STRICT_XLA_FLAGS)
+    jobs = [name for name, kind in E2E.items() if kind == "strict"]
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--reference", str(out),
+         *jobs], env=env, capture_output=True, text=True, timeout=900)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    with np.load(out) as z:
+        return {k: z[k] for k in z.files}
+
+
+# ---------------------------------------------------------------------------
+# (a) the kernel's plain version
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("greedy", [False, True])
+@pytest.mark.parametrize("measure", ["mae", "rmse", "cheb"])
+def test_prefix_devs_plain_matches_pallas(measure, greedy):
+    y, dyws, starts, ok, table, p0 = _prefix_setup(seed=11)
+    L, ny, eps = 8, 150, 0.005
+    want = np.asarray(j_fused.prefix_devs_pallas(
+        jnp.asarray(y), jnp.asarray(dyws), jnp.asarray(starts),
+        jnp.asarray(ok), jnp.asarray(table), jnp.asarray(p0), ny, eps, L=L,
+        measure=measure, greedy=greedy, interpret=True))
+    args = (T(y), T(dyws), T(starts), T(ok), T(table), T(p0),
+            torch.tensor(ny, dtype=torch.int32), eps)
+    got = t_fused.prefix_devs_plain(*args, L=L, measure=measure,
+                                    greedy=greedy)
+    # CPU tensors: the wrapper is the plain version
+    torch.testing.assert_close(t_fused.prefix_devs_cuda(
+        *args, L=L, measure=measure, greedy=greedy), got, rtol=0, atol=0)
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-9, atol=1e-9)
+    if greedy:
+        # the run commits and skips: the decisions tell the two forms apart
+        take = ok & (want <= eps)
+        assert 0 < take.sum() < ok.sum()
+        np.testing.assert_array_equal(ok & (got.numpy() <= eps), take)
+
+
+def test_prefix_devs_plain_greedy_matches_oracle():
+    """The greedy walk against ``test_backend.py``'s numpy oracle, which
+    rebuilds the reconstruction and recomputes the ACF from scratch at
+    every trial."""
+    y, dyws, starts, ok, table, p0 = _prefix_setup(seed=11)
+    L, ny, eps = 8, 150, 0.02
+    K, Wy = dyws.shape
+    devs = t_fused.prefix_devs_plain(
+        T(y), T(dyws), T(starts), T(ok), T(table), T(p0), ny, eps, L=L,
+        measure="mae", greedy=True).numpy()
+    z = y.copy()
+    oracle_devs, oracle_take = [], []
+    for k in range(K):
+        s = int(starts[k])
+        trial = z.copy()
+        trial[s:s + Wy] += dyws[k] * float(ok[k])
+        dev = float(j_measures.mae(j_acf(jnp.asarray(trial[:ny]), L), p0))
+        commit = bool(ok[k]) and dev <= eps
+        if commit:
+            z = trial
+        oracle_devs.append(dev)
+        oracle_take.append(commit)
+    np.testing.assert_allclose(devs, oracle_devs, rtol=1e-8, atol=1e-9)
+    assert min(abs(d - eps) for d in oracle_devs) > 1e-6
+    np.testing.assert_array_equal(ok & (devs <= eps), oracle_take)
+
+
+# ---------------------------------------------------------------------------
+# (b) the reference forms
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("measure", ["mae", "rmse", "cheb"])
+def test_prefix_reference_forms_match_jax(measure):
+    y, dyws, starts, ok, table, p0 = _prefix_setup()
+    L, ny, eps = 8, 150, 0.02
+    J = [jnp.asarray(a) for a in (y, dyws, starts, ok)]
+    Tt = [T(a) for a in (y, dyws, starts, ok)]
+    np.testing.assert_allclose(
+        t_fused.prefix_moment_rows(*Tt, ny, L=L).numpy(),
+        np.asarray(j_fused.prefix_moment_rows(*J, ny, L=L)),
+        rtol=1e-10, atol=1e-10)
+    rows = t_fused.prefix_acf_rows_ref(*Tt, T(table), ny, L=L)
+    np.testing.assert_allclose(
+        rows.numpy(), np.asarray(j_fused.prefix_acf_rows_ref(
+            *J, jnp.asarray(table), ny, L=L)), rtol=1e-10, atol=1e-10)
+    jcfg = jc.CameoConfig(lags=L, measure=measure, backend="reference")
+    tcfg = convert.config_from_dict(dataclasses.asdict(jcfg))
+    np.testing.assert_allclose(
+        t_fused.prefix_devs(tcfg, *Tt, T(table), T(p0), ny).numpy(),
+        np.asarray(j_fused.prefix_devs(jcfg, *J, jnp.asarray(table),
+                                       jnp.asarray(p0), ny)),
+        rtol=1e-9, atol=1e-9)
+    take_j, devs_j = j_fused.greedy_feasible(
+        jcfg, *J, jnp.asarray(table), jnp.asarray(p0), ny, eps)
+    take_t, devs_t = t_fused.greedy_feasible(
+        tcfg, *Tt, T(table), T(p0), ny, torch.tensor(eps, dtype=torch.float64))
+    np.testing.assert_allclose(devs_t.numpy(), np.asarray(devs_j),
+                               rtol=1e-9, atol=1e-9)
+    np.testing.assert_array_equal(take_t.numpy(), np.asarray(take_j))
+
+
+# ---------------------------------------------------------------------------
+# (c) the greedy decision
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("eps", [0.0045, 0.0075, 0.02])
+@pytest.mark.parametrize("seed", [9, 11, 13])
+def test_greedy_take_matches_transcription(seed, eps):
+    y, dyws, starts, ok, table, p0 = _prefix_setup(seed=seed)
+    L, ny = 8, 150
+    take_g, take_pre, more = tc.greedy_take(
+        t_fused.prefix_devs_plain, T(y), T(dyws), T(starts), T(ok), T(table),
+        T(p0), torch.tensor(ny, dtype=torch.int32),
+        torch.tensor(eps, dtype=torch.float64), L=L, measure="mae")
+    # src/repro/core/cameo.py:470-483, with the devs of the Pallas walk
+    devs = np.asarray(j_fused.prefix_devs_pallas(
+        jnp.asarray(y), jnp.asarray(dyws), jnp.asarray(starts),
+        jnp.asarray(ok), jnp.asarray(table), jnp.asarray(p0), ny, eps, L=L,
+        measure="mae", greedy=True, interpret=True))
+    want_g = ok & (devs <= eps)
+    K = ok.shape[0]
+    ar0 = np.arange(K)
+    first_skip = np.min(np.where(ok & (~want_g), ar0, K))
+    want_pre = want_g & (ar0 < first_skip)
+    np.testing.assert_array_equal(take_g.numpy(), want_g)
+    np.testing.assert_array_equal(take_pre.numpy(), want_pre)
+    assert bool(more) == bool(want_g.sum() > want_pre.sum())
+
+
+# ---------------------------------------------------------------------------
+# (d) the linearized packing's gradient
+# ---------------------------------------------------------------------------
+
+def _round_state(name, rounds):
+    """The JAX carry after ``rounds`` jitted scan rounds, and p0."""
+    x, jcfg = _series(768, 4), _cfg(name)
+    n = 768
+    nb = jc._round_bucket(n, jcfg)
+    min_alive, eps = jc._halting_params(n, jcfg)
+    nv = jnp.asarray(n, jnp.int32)
+    carry, p0 = jax.jit(lambda xp, nv: jc._rounds_init(xp, nv, jcfg))(
+        jnp.pad(jnp.asarray(x), (0, nb - n)), nv)
+    step = jax.jit(functools.partial(jc._rounds_chunk, cfg=jcfg, budget=1))
+    out = [carry]
+    for _ in range(rounds):
+        carry, _ = step(carry, nv, jnp.asarray(min_alive, jnp.int32),
+                        jnp.asarray(eps), p0)
+        out.append(carry)
+    return [[np.asarray(a) for a in c] for c in out], np.asarray(p0)
+
+
+@pytest.mark.parametrize("name", ["k1", "cheb", "rmse", "pacf"])
+def test_deviation_grad_matches_jax(name):
+    jcfg = _cfg(name)
+    tcfg = convert.config_from_dict(dataclasses.asdict(jcfg))
+    mfn, transform = jc._measure_fn(jcfg), jc._stat_transform(jcfg)
+    carries, _ = _round_state(name, 3)
+    for k in (0, 3):
+        tbl = carries[k][5]
+        # each package's own p0 from the same table: round 0 sits at a
+        # kink of every lag (|rho - p0| = 0 exactly)
+        p0_j = transform(acf_from_aggregates(jnp.asarray(tbl), 768))
+        p0_t = tc._stat_transform(tcfg)(t_acf_from_aggregates(T(tbl), 768))
+        want = np.asarray(jax.grad(lambda t5: mfn(transform(
+            acf_from_aggregates(t5, 768)), p0_j))(jnp.asarray(tbl)))
+        got = tc._deviation_grad(tcfg, T(tbl), torch.tensor(768), p0_t)
+        got = got.numpy()
+        if name == "rmse" and k == 0:
+            # d sqrt at 0: NaN in both frameworks
+            assert np.isnan(want).all() and np.isnan(got).all()
+            continue
+        np.testing.assert_allclose(got, want, rtol=1e-9,
+                                   atol=1e-12 * np.max(np.abs(want)))
+
+
+def test_round_zero_subgradient_trap():
+    """At round 0 the table is the original's, so every lag sits at
+    |rho - p0| = 0.  JAX's derivative of abs there is +1 and the port's
+    measures follow it; PyTorch's own (0) would zero the whole gradient
+    and leave the linearized order to the index."""
+    jcfg = _cfg("k1")
+    tcfg = convert.config_from_dict(dataclasses.asdict(jcfg))
+    carries, p0 = _round_state("k1", 1)
+    tbl = T(carries[0][5])
+    p0_t = t_acf_from_aggregates(tbl, 768)
+    g = tc._deviation_grad(tcfg, tbl, torch.tensor(768), p0_t)
+    with torch.enable_grad():
+        t = tbl.clone().requires_grad_(True)
+        dev = torch.mean(torch.abs(t_acf_from_aggregates(t, 768) - p0_t))
+        (g_torch,) = torch.autograd.grad(dev, t)
+    assert float(torch.max(torch.abs(g))) > 0
+    assert float(torch.max(torch.abs(g_torch))) == 0.0
+    # and round 0 of the port's scan equals JAX's
+    got = _port_round("k1", carries[0], p0)
+    assert _mismatch(got, carries[1]) == []
+
+
+# ---------------------------------------------------------------------------
+# (e) rounds and end to end
+# ---------------------------------------------------------------------------
+
+def _port_round(name, carry_np, p0):
+    jcfg = _cfg(name)
+    n = 768
+    nb = jc._round_bucket(n, jcfg)
+    min_alive, eps = jc._halting_params(n, jcfg)
+    tcfg = convert.config_from_dict(dataclasses.asdict(jcfg))
+    probe, body = tc._round_fns(
+        tcfg, nb, torch.tensor(n, dtype=torch.int32),
+        torch.tensor(min_alive, dtype=torch.int32),
+        torch.tensor(eps, dtype=torch.float64), T(p0))
+    carry = convert.carry_from_numpy(carry_np, "cpu")
+    go, small = probe(carry).tolist()
+    assert go
+    return convert.carry_to_numpy(body(carry, small=small))
+
+
+def _mismatch(got, want):
+    bad = []
+    for f, g, w in zip(FIELDS, got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, f
+        if w.dtype.kind == "f":
+            if not np.allclose(g, w, rtol=0.0, atol=1e-10):
+                bad.append(f)
+        elif not np.array_equal(g, w):
+            bad.append(f)
+    return bad
+
+
+@pytest.mark.parametrize("name", ["k1", "single", "first_violation"])
+def test_scan_rounds_match_reference(name):
+    carries, p0 = _round_state(name, 11)
+    for k in (0, 3, 10):
+        assert _mismatch(_port_round(name, carries[k], p0),
+                         carries[k + 1]) == [], k
+
+
+def test_scan_pacf_rounds_and_near_tie():
+    """PACF: the port holds JAX's jitted rounds until round 52, where the
+    float32 PACF ranking rows of points 74 and 76 tie within XLA's
+    rewrites; there the port equals JAX run op by op (ROADMAP.md C)."""
+    name = "pacf"
+    carries, p0 = _round_state(name, 53)
+    for k in range(0, 52, 3):
+        assert _mismatch(_port_round(name, carries[k], p0),
+                         carries[k + 1]) == [], k
+    got = _port_round(name, carries[52], p0)
+    assert _mismatch(got, carries[53]) == ["blocked"]
+    jcfg = _cfg(name)
+    min_alive, eps = jc._halting_params(768, jcfg)
+    with jax.disable_jit():
+        op, _ = jc._rounds_chunk(
+            tuple(jnp.asarray(a) for a in carries[52]),
+            jnp.asarray(768, jnp.int32), jnp.asarray(min_alive, jnp.int32),
+            jnp.asarray(eps), jnp.asarray(p0), cfg=jcfg, budget=1)
+    assert _mismatch(got, [np.asarray(a) for a in op]) == []
+
+
+@pytest.mark.parametrize("name", list(E2E))
+def test_scan_end_to_end(name, strict):
+    import chip_smoke
+    x = _series(768, 4)
+    jcfg = _cfg(name)
+    tcfg = convert.config_from_dict(dataclasses.asdict(jcfg))
+    got = tc.compress(x, tcfg, device="cpu")
+    if E2E[name] == "jit":
+        r = jc.compress_rounds(jnp.asarray(x), jcfg)
+        kept, iters, dev = r.kept, r.iters, r.deviation
+    else:
+        kept, iters, dev = (strict[f"{name}/{f}"]
+                            for f in ("kept", "iters", "deviation"))
+    np.testing.assert_array_equal(got.kept.numpy(), np.asarray(kept))
+    assert int(got.iters) == int(iters)
+    assert abs(float(got.deviation) - float(dev)) <= 1e-12
+    k, xr = got.kept.numpy(), got.xr.numpy()
+    assert k[0] and k[-1]
+    np.testing.assert_array_equal(xr[k], x[k])
+    if tcfg.target_cr is None:
+        assert float(got.deviation) <= tcfg.eps
+    assert abs(chip_smoke.remeasure(x, xr, tcfg)
+               - float(got.deviation)) <= 1e-9
+
+
+# ---------------------------------------------------------------------------
+# on the card
+# ---------------------------------------------------------------------------
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card with CUDA; the hand-written "
+                    "kernels run only there (chip_smoke.py drives them)")
+    return torch.device("cuda")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("nyb,ny", [(160, 150), (40000, 39000)])
+def test_gpu_prefix_devs(cuda, nyb, ny):
+    """Shared-memory z (nyb = 160) and the global-scratch layout (nyb =
+    40,000: z outgrows 227 KB)."""
+    y, dyws, starts, ok, table, p0 = _prefix_setup(seed=11, nyb=nyb, ny=ny,
+                                                   K=40, Wy=16, L=8)
+    args = [T(a).to(cuda) for a in (y, dyws, starts, ok, table, p0)]
+    args += [torch.tensor([ny], dtype=torch.int32, device=cuda),
+             torch.tensor([0.02], dtype=torch.float64, device=cuda)]
+    for greedy in (False, True):
+        for measure in ("mae", "rmse", "cheb"):
+            got = t_fused.prefix_devs_cuda(*args, L=8, measure=measure,
+                                           greedy=greedy)
+            want = t_fused.prefix_devs_plain(*args, L=8, measure=measure,
+                                             greedy=greedy)
+            torch.testing.assert_close(got, want, rtol=1e-12, atol=0)
+
+
+@pytest.mark.gpu
+def test_gpu_scan_greedy_lockstep(cuda):
+    """One scan round's greedy decisions on the card: kernel and plain
+    version take the same candidates."""
+    y, dyws, starts, ok, table, p0 = _prefix_setup(seed=13, K=64)
+    args = [T(a).to(cuda) for a in (y, dyws, starts, ok, table, p0)]
+    args += [torch.tensor([150], dtype=torch.int32, device=cuda),
+             torch.tensor([0.02], dtype=torch.float64, device=cuda)]
+    a = tc.greedy_take(t_fused.prefix_devs_cuda, *args, L=8, measure="mae")
+    b = tc.greedy_take(t_fused.prefix_devs_plain, *args, L=8, measure="mae")
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+
+
+if __name__ == "__main__" and sys.argv[1:2] == ["--reference"]:
+    _reference_main(sys.argv[2], sys.argv[3:])
