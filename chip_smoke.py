@@ -18,8 +18,10 @@ Phases, each of which fails the run (non-zero exit) on a wrong result:
    rounds mode's float32 kernels, the float64 forms of the sequential mode
    (acf_impact at init, acf_window_impact at the ReHeap's P = 50 and, off
    the driven paths, the partitioned mode's ranking chunk, P = 4,096) and
-   the scan's prefix walk (prefix_devs, greedy and not, at each dataset's
-   k_max);
+   the scan's prefix walk (prefix_devs, greedy and not, held exactly: a
+   random walk over each dataset's k_max ranks, and the real lock-step
+   round 3 of each dataset's scan, its arguments captured through the
+   round body's hook, with K, the ok count and the interior count);
 4. main paths — ``compress()`` on the card with, for each run, every
    kernel of its path launched, deviation <= eps, a from-scratch float64
    re-measure on the CPU agreeing to 1e-9, endpoints kept and kept values
@@ -36,7 +38,8 @@ Phases, each of which fails the run (non-zero exit) on a wrong result:
    version must take the same candidates), torch.profiler breakdowns of
    the uk_elec rounds run and both scan runs
    (``chiprun_out/profile_<dataset>_<path>.txt``: each hand kernel's
-   device time a round and the card's idle share), and the round
+   device time a round, the card's idle share and the ok ranks the prefix
+   walks take a round), and the round
    where aus_elec's card run parts from its CPU run with what differs
    there (``chiprun_out/diverge_aus_elec.json``); then a
    ``{"kernels": [...]}`` line;
@@ -48,6 +51,7 @@ inputs, where the wrappers take their plain versions.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import statistics
 import subprocess
@@ -105,9 +109,11 @@ REPLACES = {"lag_dot": "src/repro/kernels/lag_dot.py:42",
 # every operation as their plain versions do, so all of them come out bit
 # for bit equal; the tolerances admit another summation order).
 TOL_F64 = (1e-10, 1e-12)
+# prefix_devs is held exactly: it claims bit-equality, and the scan's
+# decisions depend on every bit.
 TOL = {"lag_dot": (1e-10, 1e-10), "acf_impact": (1e-4, 1e-6),
        "window_rows": (1e-4, 1e-6), "acf_window_impact": TOL_F64,
-       "prefix_devs": TOL_F64}
+       "prefix_devs": (0.0, 0.0)}
 DATASETS = ("uk_elec", "aus_elec")
 EPS = 1e-2
 # the main paths of phase 4: (name, CameoConfig overrides, kernels the path
@@ -324,6 +330,10 @@ def phase_kernels(device, name: str, length=None) -> list:
     row["bound_by"] = max(tiers, key=lambda t: t["bound_ms"])["bound_by"]
     out.append(row)
     out += phase_kernels_f64(device, cfg, nb, ny, y64, table, p0, rng)
+    # prefix_devs on the arguments of the dataset's real lock-step scan round
+    cap = capture_round(device, name, length=length)
+    out.append(prefix_case(device, f"real round {cap['round']}",
+                           cap["args"][:7], cap["args"][7], L, mixed=False))
     for r in out:
         r["dataset"] = name
     return out
@@ -421,10 +431,34 @@ def phase_kernels_f64(device, cfg, nb, ny, y64, table, p0, rng) -> list:
     # eps at the middle of the prefix curve: the greedy walk then both
     # commits and skips
     eps = torch.sort(curve).values[K // 2].reshape(1)
-    # the plain version walks K candidates with ~30 PyTorch ops each (25 s
-    # at aus_elec's K on the card), so it runs once per case: the prefix
-    # curve and the greedy walk under mae, the other measures where K is
-    # small; the greedy mae call is the one timed
+    out.append(prefix_case(device, "random", args, eps, L))
+    return out
+
+
+def prefix_bound(K, n_ok, Wy, L, nyb):
+    """Bound of one prefix walk, float64.  A rank that is not ok adds a
+    zero delta: its output is the committed deviation, so it needs no
+    window work and no delta row, only its ok flag and its store.  Bytes:
+    y, the ok ranks' delta rows and starts, the ok flags, table + p0, the
+    output.  Operations per ok rank: the window-impact count at P = 1,
+    plus Wy for the commit of z (the table's commit is a copy)."""
+    return bound_ms((nyb + n_ok * Wy + 6 * L + K) * 8 + 4 * n_ok + K,
+                    n_ok * (L * (4.0 * Wy + 22) + 6.0 * Wy), FP64_FLOPS)
+
+
+def prefix_case(device, what: str, args, eps, L: int,
+                mixed: bool = True) -> dict:
+    """prefix_devs against its plain version on ``args`` (y, dyws, ystarts,
+    ok, table, p0, ny): the curve and the greedy walk under mae, rmse and
+    cheb too where K is small; one phase-3 entry, timed on the greedy mae
+    call, with K and its ok and interior counts.  The greedy walk must
+    commit, and skip too where ``mixed``."""
+    y, dyws, starts, ok = args[:4]
+    K, Wy = dyws.shape
+    nyb, ny = y.shape[0], int(args[6].reshape(-1)[0])
+    # the plain version walks K candidates with ~30 PyTorch ops each (16 s
+    # at aus_elec's K on the card), so it runs once per case; the greedy
+    # mae call is the one timed
     err, plain_ms = 0.0, None
     cases = [(False, "mae"), (True, "mae")]
     if K <= 4096:
@@ -437,27 +471,28 @@ def phase_kernels_f64(device, cfg, nb, ny, y64, table, p0, rng) -> list:
         if (greedy, measure) == (True, "mae"):
             plain_ms = ms
         err = max(err, check_close(
-            f"prefix_devs (K={K}, Wy={Wy}, greedy={greedy}, {measure})",
-            "prefix_devs", got, want))
+            f"prefix_devs {what} (K={K}, Wy={Wy}, greedy={greedy}, "
+            f"{measure})", "prefix_devs", got, want))
     take = ok & (_fused.prefix_devs_cuda(*args, eps, L=L, greedy=True)
                  <= eps)
-    require(0 < int(take.sum()) < int(ok.sum()),
-            "prefix_devs check: the greedy walk should commit and skip")
+    require(0 < int(take.sum()) and (int(take.sum()) < int(ok.sum())
+                                      or not mixed),
+            f"prefix_devs {what}: the greedy walk should commit"
+            + (" and skip" if mixed else ""))
+    s = torch.clamp(starts.long(), 0, nyb - 1)
+    n_ok = int(ok.sum())
+    n_int = int((ok & (s >= L) & (s + Wy + L <= ny)).sum())
     kw = dict(L=L, measure="mae", greedy=True)
-    # per candidate: the window-impact count at P = 1, plus Wy for the
-    # commit of z (the table's commit is a copy)
-    bnd, by = bound_ms((nyb + K * Wy + 6 * L + K) * 8 + 5 * K,
-                       K * (L * (4.0 * Wy + 22) + 6.0 * Wy), FP64_FLOPS)
-    out.append(dict(
-        name="prefix_devs", shape=f"K={K} Wy={Wy} L={L} nyb={nyb} float64 "
-                                  f"greedy (commits {int(take.sum())} of "
-                                  f"{int(ok.sum())} ok)",
-        max_abs_err=err,
+    bnd, by = prefix_bound(K, n_ok, Wy, L, nyb)
+    return dict(
+        name="prefix_devs",
+        shape=f"{what}: K={K} ok={n_ok} interior={n_int} Wy={Wy} L={L} "
+              f"nyb={nyb} float64 greedy (commits {int(take.sum())})",
+        K=K, ok=n_ok, interior=n_int, max_abs_err=err,
         ms=device_ms(lambda: _fused.prefix_devs_cuda(*args, eps, **kw),
                      device, reps=5, inner=5),
         plain_ms=plain_ms, library_ms=None, bound_ms=bnd, bound_by=by,
-        measures=[m for g, m in cases if g]))
-    return out
+        measures=[m for g, m in cases if g])
 
 
 # ---------------------------------------------------------------------------
@@ -560,13 +595,12 @@ def phase_main(device, name: str, path: str = "rounds", length=None,
     return row
 
 
-def scan_lockstep(device, name: str = "uk_elec", rounds: int = 3) -> dict:
-    """One scan round from one carry on the card, twice: the greedy branch
-    with the prefix_devs kernel and with its plain version.  Their take
-    masks (ok & devs <= eps) must be identical, and so the carries."""
-    device = torch.device(device)
+def _scan_state(device, name: str, rounds: int, length=None):
+    """A scan run on ``device`` stepped ``rounds`` rounds: the config, the
+    round functions' arguments, p0, the carry and the next round's
+    ``small``."""
     cfg, _, _ = _path_cfg(name, "scan")
-    x = make_dataset(name, seed=0)
+    x = make_dataset(name, seed=0, length=length)
     n = (x.shape[0] // cfg.kappa) * cfg.kappa
     nb = cameo._round_bucket(n, cfg)
     xp = F.pad(torch.from_numpy(x[:n]), (0, nb - n)).to(device)
@@ -581,6 +615,52 @@ def scan_lockstep(device, name: str = "uk_elec", rounds: int = 3) -> dict:
         require(go, f"{name} scan ended before the lock-step round")
         carry = body(carry, small=small)
     go, small = probe(carry).tolist()
+    require(go, f"{name} scan ended before the lock-step round")
+    return cfg, (nb, nv, *consts, p0), carry, small
+
+
+@contextlib.contextmanager
+def card_dispatch(device):
+    """On the CPU, dispatch the scan as on the card (its greedy branch, with
+    every kernel wrapper taking its plain version for CPU tensors), so the
+    card's path is rehearsed; nothing changes on the card."""
+    if device.type == "cuda":
+        yield
+        return
+    saved = _ops._kernel_eligible
+    _ops._kernel_eligible = lambda backend, stat, measure, device=None: (
+        stat == "acf" and measure in _ref.KERNEL_MEASURES)
+    try:
+        yield
+    finally:
+        _ops._kernel_eligible = saved
+
+
+def capture_round(device, name: str, rounds: int = 3, length=None) -> dict:
+    """The arguments of the prefix walk of the scan's lock-step round
+    (round ``rounds``, after that many rounds on ``device``), captured
+    through the round body's ``prefix_devs_fn`` hook: ``args`` is (y, dyws,
+    ystarts, ok, table, p0, ny, eps)."""
+    device = torch.device(device)
+    got = {}
+
+    def recording(*a, **kw):
+        got.setdefault("args", tuple(t.clone() for t in a))
+        return _fused.prefix_devs_cuda(*a, **kw)
+    with card_dispatch(device):
+        cfg, fargs, carry, small = _scan_state(device, name, rounds, length)
+        _, body = cameo._round_fns(cfg, *fargs, prefix_devs_fn=recording)
+        body(carry, small=small)
+    require("args" in got, f"{name} scan round {rounds} walked no prefix")
+    return dict(round=rounds, args=got["args"])
+
+
+def scan_lockstep(device, name: str = "uk_elec", rounds: int = 3) -> dict:
+    """One scan round from one carry on the card, twice: the greedy branch
+    with the prefix_devs kernel and with its plain version.  Their take
+    masks (ok & devs <= eps) must be identical, and so the carries."""
+    device = torch.device(device)
+    cfg, fargs, carry, small = _scan_state(device, name, rounds)
     takes, outs = {}, {}
     for key, fn in (("kernel", _fused.prefix_devs_cuda),
                     ("plain", _fused.prefix_devs_plain)):
@@ -588,8 +668,7 @@ def scan_lockstep(device, name: str = "uk_elec", rounds: int = 3) -> dict:
             devs = _fn(*a, **kw)
             takes[_key] = (a[3] & (devs <= a[7])).cpu()
             return devs
-        _, body_k = cameo._round_fns(cfg, nb, nv, *consts, p0,
-                                     prefix_devs_fn=recording)
+        _, body_k = cameo._round_fns(cfg, *fargs, prefix_devs_fn=recording)
         outs[key] = body_k(carry, small=small)
     require(torch.equal(takes["kernel"], takes["plain"]),
             f"{name} lock-step scan round: the kernel's take mask differs "
@@ -606,11 +685,27 @@ def scan_lockstep(device, name: str = "uk_elec", rounds: int = 3) -> dict:
 def profile_main(device, name: str = "uk_elec", path: str = "rounds") -> dict:
     """torch.profiler breakdown of one main-path run (the card's busy time
     by kernel, each hand kernel's device time and launches a round, the
-    idle share) written under chiprun_out/."""
+    idle share, and the ranks and ok ranks the prefix walks take a round)
+    written under chiprun_out/."""
     from torch.profiler import ProfilerActivity, profile
     cfg, _, _ = _path_cfg(name, path)
     x = make_dataset(name, seed=0)
-    cameo.compress(x, cfg, device=device)            # warm
+    # warm, counting the ranks and the ok ranks of every prefix walk (the
+    # profiled run repeats the same rounds)
+    walks = []
+    kernel = _fused.prefix_devs_cuda
+
+    def counting(*a, **kw):
+        walks.append((a[3].numel(), a[3].sum()))
+        return kernel(*a, **kw)
+    # the wrapper counts its launches on the name it is bound to
+    counting.launches = kernel.launches
+    _fused.prefix_devs_cuda = counting
+    try:
+        cameo.compress(x, cfg, device=device)
+    finally:
+        _fused.prefix_devs_cuda = kernel
+        kernel.launches = counting.launches
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -649,6 +744,10 @@ def profile_main(device, name: str = "uk_elec", path: str = "rounds") -> dict:
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:10]
     return dict(dataset=name, path=path, rounds=int(res.iters), wall_s=wall,
                 host_s_per_round=wall / rounds,
+                prefix_walks=len(walks),
+                prefix_ranks_per_round=sum(k for k, _ in walks) / rounds,
+                prefix_ok_ranks_per_round=sum(int(o) for _, o in walks)
+                / rounds,
                 device_busy_s=busy, idle_share=1.0 - busy / wall,
                 device_launches=sum(dev_n.values()),
                 launches_per_round=sum(dev_n.values()) / rounds,

@@ -13,120 +13,308 @@
 // index rules it follows: the head/tail masks test s_k + j against ny,
 // z[i] = y[i - L] (zero outside [0, nyb)), d[j + l] is zero past the window.
 //
-// Bound on the H100: the function needs per (candidate, lag) ~4 Wy + 22
-// flops and ~6 Wy per candidate with the commit of z, against ~(Wy + 2)
-// values read per candidate (uk_elec K = 1,843, Wy = 64, L = 48: ~25 MFLOP,
-// under a microsecond at the FP64 rate).  But the walk is sequential in
-// k — each trial reads the z and table the previous commit wrote — so the
-// kernel is bound by the latency of K dependent steps on one SM, not by
-// the card's rate (PERF.md has the card's numbers).
-// Design: one block walks the K candidates.  z (nyb + 2L + Wy values) sits
-// in dynamic shared memory while it fits the block's 227 KB (the launcher
-// raises the 48 KB default), else in a global scratch buffer on the same
-// code path.  Per candidate: the block stages d and e = d (2 z + d); one
-// thread per lag forms the five masked sums over the window, first to last
-// (rn::window_sums, shared with acf_window_impact.cu), and its Eq. 2
-// entry; one thread reduces the lags in order and decides the
-// commit; the block adds gate * d into z and keeps the trial table where
-// the candidate commits.  Every product and sum is rounded on its own
-// (rn.cuh), so the output equals the plain version bit for bit.
+// Bound on the H100: the function needs per ok candidate and lag ~4 Wy + 22
+// flops and ~6 Wy per ok candidate with the commit of z; a rank that is
+// not ok adds a zero delta, so its output is the committed deviation and
+// it needs no window work, only its store.  But the walk is sequential in
+// the ok ranks — each trial reads the z and table the previous commit
+// wrote — so the kernel is bound by the latency of its dependent steps on
+// one SM, not by the card's rate (PERF.md has the card's numbers).
+//
+// Design: one block walks the K ranks in chunks of kChunk, one thread per
+// lag (ceil(L / 32) warps; lane c of the block owns lag c).
+// - Skip.  A block-wide prefix count of ok over the chunk lists its ok
+//   ranks in shared memory; only those are walked.  dev_c, the deviation
+//   of the committed table (formed at the start with the same rounded
+//   operations as a trial with zero sums), becomes an ok rank's trial
+//   deviation where it commits.  One parallel pass at the end of the chunk
+//   gives every other rank the dev_c recorded after the last ok rank
+//   before it.  A zero delta would leave z and the table equal up to the
+//   sign of a zero, which no output can see (every measure takes |.| or a
+//   square of each lag's term), so skipping it changes no bit.
+// - Prefetch.  The next ok rank's start and delta row are copied into the
+//   other half of a double buffer in shared memory with cp.async while the
+//   current rank is walked, so a step reads its d from shared memory.
+// - Interior fast path (L <= s and s + Wy + L <= ny: every head and tail
+//   mask is 1, and multiplying by 1 is exact).  The sums of d and of
+//   e = d (2 z + d) are the same for every lag: they run once in each
+//   warp's instruction stream.  Each thread forms its lag's Wy products
+//   d_j ((z[j + l] + z[j - l]) + d[j + l]) in registers and chains them
+//   in order, beside the sums of d and e.  Boundary candidates stage e in
+//   shared memory and take rn::window_sums (shared with
+//   acf_window_impact.cu) for each lag.  (Forming all L x Wy products
+//   across the block into shared memory, then one chain per lag from
+//   there, took longer on the card: PERF.md.)
+// - Decision.  Each thread keeps its lag's committed moments in registers,
+//   forms the trial moments and the Eq. 2 entry, and posts its lag's term
+//   of the measure in shared memory; after one barrier every thread
+//   reduces the terms (cheb as a max, exact; NaN wins, as torch.amax; mae
+//   and rmse as one in-order chain, since bit-equality forbids a tree), so
+//   all hold the deviation and the decision.  A step costs two barriers,
+//   __syncwarp in the one-warp block of L <= 32 (aus_elec's L = 7).
+// z (nyb + 2L + Wy values) sits in dynamic shared memory while it fits the
+// block's 227 KB (the launcher raises the 48 KB default), else in a global
+// scratch buffer (a second instantiation).  Every product and sum is
+// rounded on its own (rn.cuh) and runs in the plain version's order, so the
+// output equals the plain version bit for bit.
 #include <cuda_runtime.h>
 
 #include "rn.cuh"
 
 namespace {
 
+constexpr int kChunk = 1024;   // ranks compacted at a time (fused_round.py)
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxLags = 512;  // one thread per lag, <= 128 registers each
+
+template <bool kWarp>
+__device__ __forceinline__ void block_sync() {
+  if constexpr (kWarp) __syncwarp(); else __syncthreads();
+}
+
+// max that keeps a NaN, as torch.amax does
 template <typename T>
-__global__ void prefix_devs_kernel(const T* __restrict__ y,
-                                   const T* __restrict__ dyws,
-                                   const int* __restrict__ ystarts,
-                                   const unsigned char* __restrict__ ok,
-                                   const T* __restrict__ table,
-                                   const T* __restrict__ p0,
-                                   const int* __restrict__ ny_ptr,
-                                   const T* __restrict__ eps_ptr,
-                                   T* __restrict__ out, T* __restrict__ zg,
-                                   int K, int Wy, int nyb, int L, int measure,
-                                   int greedy, int use_smem) {
-  extern __shared__ unsigned char sm_raw[];
-  T* agg = reinterpret_cast<T*>(sm_raw);   // [5, L] committed table
-  T* trial = agg + 5 * L;                  // [5, L]
-  T* d = trial + 5 * L;                    // [Wy]
-  T* e = d + Wy;                           // [Wy]
-  T* diff = e + Wy;                        // [L] rho - p0
-  T* z = use_smem ? diff + L : zg;         // [nyb + 2L + Wy]
-  __shared__ int take_s;
+__device__ __forceinline__ T max_nan(T m, T a) {
+  return (a != a || a > m) ? a : m;
+}
+
+// One value from device memory into shared memory, without waiting:
+// cp_wait() before a barrier makes it visible.
+template <typename V>
+__device__ __forceinline__ void cp_async(V* smem, const V* gmem) {
+  static_assert(sizeof(V) == 4 || sizeof(V) == 8, "4 or 8 bytes");
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst),
+               "l"(gmem), "n"(sizeof(V)));
+}
+
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// kWarp: one warp (L <= 32); else blockDim.x = 32 ceil(L / 32) threads.
+template <typename T, bool kWarp, bool ZS>
+__global__ void __launch_bounds__(kWarp ? 32 : kMaxLags)
+prefix_devs_kernel(const T* __restrict__ y, const T* __restrict__ dyws,
+                   const int* __restrict__ ystarts,
+                   const unsigned char* __restrict__ ok,
+                   const T* __restrict__ table, const T* __restrict__ p0,
+                   const int* __restrict__ ny_ptr,
+                   const T* __restrict__ eps_ptr, T* __restrict__ out, T* zg,
+                   int K, int Wy, int nyb, int L, int measure, int greedy) {
+  const int NT = kWarp ? 32 : blockDim.x;
+  const int NW = NT / 32;
+  const int PT = (kChunk + NT - 1) / NT;   // ranks a thread compacts
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int zlen = nyb + 2 * L + Wy;
-  for (int i = threadIdx.x; i < zlen; i += blockDim.x)
+
+  extern __shared__ __align__(16) unsigned char sm_raw[];
+  T* vals = reinterpret_cast<T*>(sm_raw);  // [L] the lags' terms
+  T* dst = vals + L;                       // [2, Wy] staged deltas
+  T* e = dst + 2 * Wy;                     // [Wy] (boundary candidates)
+  T* devc_after = e + Wy;                  // [kChunk] dev_c after ok rank i
+  T* zs = devc_after + kChunk;             // [zlen] where ZS
+  unsigned short* list =                   // [kChunk] the chunk's ok ranks
+      reinterpret_cast<unsigned short*>(zs + (ZS ? zlen : 0));
+  unsigned short* cnt = list + kChunk;     // [kChunk] ok ranks before each
+  T* z = ZS ? zs : zg;
+  __shared__ int s_stage[2];               // staged starts, unclipped
+  __shared__ int wtot[32];
+  __shared__ T devc_start;
+
+  for (int i = tid; i < zlen; i += NT)
     z[i] = (i >= L && i < L + nyb) ? y[i - L] : static_cast<T>(0);
-  for (int i = threadIdx.x; i < 5 * L; i += blockDim.x) agg[i] = table[i];
   const int ny = *ny_ptr;
   const T eps = *eps_ptr;
-  __syncthreads();
-  for (int k = 0; k < K; ++k) {
-    const int s = min(max(ystarts[k], 0), nyb - 1);
-    const T okk = ok[k] ? static_cast<T>(1) : static_cast<T>(0);
-    for (int i = threadIdx.x; i < Wy; i += blockDim.x) {
-      const T dk = rn::mul(dyws[static_cast<size_t>(k) * Wy + i], okk);
-      d[i] = dk;
-      e[i] = rn::mul(dk, rn::add(static_cast<T>(2) * z[s + L + i], dk));
+  // this thread's lag (threads past L shadow the last one) and its
+  // committed moments
+  const bool mine = tid < L;
+  const int lw = min(tid, L - 1) + 1;
+  T ag[5];
+  for (int q = 0; q < 5; ++q) ag[q] = table[q * L + lw - 1];
+  const T p0w = p0[lw - 1];
+  block_sync<kWarp>();
+
+  // the trial moments t of this thread's lag from its window sums a, and
+  // the deviation, which every thread reduces over the lags' terms in order
+  auto deviation = [&](const T* a, T* t) -> T {
+    for (int q = 0; q < 5; ++q) t[q] = rn::add(ag[q], a[q]);
+    const T df = rn::sub(rn::acf_rho(t[0], t[1], t[2], t[3], t[4],
+                                     static_cast<T>(ny - lw)),
+                         p0w);
+    const T v = measure == 1 ? rn::mul(df, df) : fabs(df);
+    if (mine) vals[tid] = v;
+    block_sync<kWarp>();
+    T acc = 0;
+#pragma unroll 8
+    for (int c = 0; c < L; ++c)
+      acc = measure == 2 ? max_nan(acc, vals[c]) : rn::add(acc, vals[c]);
+    return rn::measure_final(measure, acc, L);
+  };
+
+  // stage ok rank k's start and delta row into slot b (asynchronous)
+  auto stage = [&](int k, int b) {
+    if (tid == 0) cp_async(s_stage + b, ystarts + k);
+    for (int j = tid; j < Wy; j += NT)
+      cp_async(dst + b * Wy + j, dyws + static_cast<size_t>(k) * Wy + j);
+  };
+
+  T dev_c;   // the committed table's deviation
+  {
+    const T a[5] = {0, 0, 0, 0, 0};
+    T t[5];
+    dev_c = deviation(a, t);
+  }
+
+  for (int base = 0; base < K; base += kChunk) {
+    const int n = min(kChunk, K - base);
+    // the previous chunk's fill is done with devc_start, cnt and devc_after
+    block_sync<kWarp>();
+    if (tid == 0) devc_start = dev_c;
+    // list the chunk's ok ranks: per-thread counts, a warp scan, warp totals
+    unsigned bits = 0;
+    int c = 0;
+    for (int r = 0; r < PT; ++r) {
+      const int p = tid * PT + r;
+      const unsigned v = p < n ? ok[base + p] : 0;
+      bits |= (v != 0) << r;
+      c += v != 0;
     }
-    __syncthreads();
-    for (int l = 1 + threadIdx.x; l <= L; l += blockDim.x) {
+    int x = c;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(kFull, x, o);
+      if (lane >= o) x += v;
+    }
+    if (lane == 31) wtot[warp] = x;
+    block_sync<kWarp>();
+    int run = x - c, n_ok = 0;
+    for (int w = 0; w < NW; ++w) {
+      if (w < warp) run += wtot[w];
+      n_ok += wtot[w];
+    }
+    for (int r = 0; r < PT; ++r) {
+      const int p = tid * PT + r;
+      if (p < n) {
+        cnt[p] = static_cast<unsigned short>(run);
+        if (bits >> r & 1u) list[run++] = static_cast<unsigned short>(p);
+      }
+    }
+    block_sync<kWarp>();
+    if (n_ok > 0) {
+      stage(base + list[0], 0);
+      cp_wait();
+    }
+    block_sync<kWarp>();
+
+    for (int i = 0; i < n_ok; ++i) {
+      const int b = i & 1;
+      const int s = min(max(s_stage[b], 0), nyb - 1);
+      const T* d = dst + b * Wy;
+      // the next ok rank, copied while this one is walked
+      if (i + 1 < n_ok) stage(base + list[i + 1], b ^ 1);
+      T* zc = z + s + L;
       T a[5];
-      rn::window_sums(z + s + L, d, e, Wy, s, l, ny, a);
-      const int c = l - 1;
-      const T sx = rn::add(agg[c], a[0]), sxl = rn::add(agg[L + c], a[1]);
-      const T sx2 = rn::add(agg[2 * L + c], a[2]);
-      const T sxl2 = rn::add(agg[3 * L + c], a[3]);
-      const T sxx = rn::add(agg[4 * L + c], a[4]);
-      trial[c] = sx; trial[L + c] = sxl; trial[2 * L + c] = sx2;
-      trial[3 * L + c] = sxl2; trial[4 * L + c] = sxx;
-      diff[c] = rn::sub(rn::acf_rho(sx, sxl, sx2, sxl2, sxx,
-                                    static_cast<T>(ny - l)), p0[c]);
+      if (s >= L && s + Wy + L <= ny) {
+        // interior: this lag's products, chained over the window with the
+        // sums of d and e, first to last
+        auto term = [&](int j, T& dj, T& ej) -> T {
+          dj = d[j];
+          const T zj = zc[j], zf = zc[j + lw], zb = zc[j - lw];
+          const T df = j + lw < Wy ? d[j + lw] : static_cast<T>(0);
+          ej = rn::mul(dj, rn::add(static_cast<T>(2) * zj, dj));
+          return rn::mul(dj, rn::add(rn::add(zf, zb), df));
+        };
+        T sd, se;
+        T s4 = term(0, sd, se);
+#pragma unroll 4
+        for (int j = 1; j < Wy; ++j) {
+          T dj, ej;
+          const T pj = term(j, dj, ej);
+          s4 = rn::add(s4, pj);
+          sd = rn::add(sd, dj);
+          se = rn::add(se, ej);
+        }
+        a[0] = a[1] = sd;
+        a[2] = a[3] = se;
+        a[4] = s4;
+      } else {
+        for (int j = tid; j < Wy; j += NT)
+          e[j] = rn::mul(d[j], rn::add(static_cast<T>(2) * zc[j], d[j]));
+        block_sync<kWarp>();
+        rn::window_sums(zc, d, e, Wy, s, lw, ny, a);
+      }
+      T t[5];
+      const T dev = deviation(a, t);
+      const bool take = !greedy || dev <= eps;
+      if (take) {
+        dev_c = dev;
+        for (int q = 0; q < 5; ++q) ag[q] = t[q];
+      }
+      if (tid == 0) {
+        out[base + list[i]] = dev;
+        devc_after[i] = dev_c;
+      }
+      if (take)
+        for (int j = tid; j < Wy; j += NT) zc[j] = rn::add(zc[j], d[j]);
+      cp_wait();
+      block_sync<kWarp>();
     }
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      T acc = 0;
-      for (int l = 0; l < L; ++l) acc = rn::measure_step(measure, acc, diff[l]);
-      const T dev = rn::measure_final(measure, acc, L);
-      out[k] = dev;
-      take_s = greedy ? (ok[k] && dev <= eps) : 1;
+
+    // every rank that is not ok: the committed deviation at its position
+    for (int p = tid; p < n; p += NT) {
+      const int cp = cnt[p];
+      const int cn = p + 1 < n ? cnt[p + 1] : n_ok;
+      if (cn == cp) out[base + p] = cp == 0 ? devc_start : devc_after[cp - 1];
     }
-    __syncthreads();
-    const T gate = take_s ? static_cast<T>(1) : static_cast<T>(0);
-    for (int i = threadIdx.x; i < Wy; i += blockDim.x)
-      z[s + L + i] = rn::add(z[s + L + i], rn::mul(gate, d[i]));
-    if (take_s)
-      for (int i = threadIdx.x; i < 5 * L; i += blockDim.x) agg[i] = trial[i];
-    __syncthreads();
   }
 }
 
-template <typename T>
-int launch(const void* y, const void* dyws, const void* ystarts,
-           const void* ok, const void* table, const void* p0, const void* ny,
-           const void* eps, void* out, void* scratch, int K, int Wy, int nyb,
-           int L, int measure, int greedy, int use_smem, void* stream) {
-  int threads = ((max(L, Wy) + 31) / 32) * 32;
-  if (threads > 256) threads = 256;
-  size_t smem = (11 * L + 2 * Wy) * sizeof(T);
-  if (use_smem) smem += (nyb + 2 * L + Wy) * sizeof(T);
+template <typename T, bool kWarp, bool ZS>
+int launch_block(const void* y, const void* dyws, const void* ystarts,
+                 const void* ok, const void* table, const void* p0,
+                 const void* ny, const void* eps, void* out, void* scratch,
+                 int K, int Wy, int nyb, int L, int measure, int greedy,
+                 int threads, size_t smem, void* stream) {
+  auto kernel = prefix_devs_kernel<T, kWarp, ZS>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
-        prefix_devs_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  prefix_devs_kernel<T><<<1, threads, smem,
-                          static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<1, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(y), static_cast<const T*>(dyws),
       static_cast<const int*>(ystarts),
       static_cast<const unsigned char*>(ok), static_cast<const T*>(table),
       static_cast<const T*>(p0), static_cast<const int*>(ny),
       static_cast<const T*>(eps), static_cast<T*>(out),
-      static_cast<T*>(scratch), K, Wy, nyb, L, measure, greedy, use_smem);
+      static_cast<T*>(scratch), K, Wy, nyb, L, measure, greedy);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The wrapper (fused_round.prefix_devs_cuda) decides use_smem from the same
+// layout; L is at most kMaxLags.
+template <typename T>
+int launch(const void* y, const void* dyws, const void* ystarts,
+           const void* ok, const void* table, const void* p0, const void* ny,
+           const void* eps, void* out, void* scratch, int K, int Wy, int nyb,
+           int L, int measure, int greedy, int use_smem, void* stream) {
+  if (L < 1 || L > kMaxLags) return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = 32 * ((L + 31) / 32);
+  size_t smem = (L + 3 * Wy + kChunk) * sizeof(T) +
+                2 * kChunk * sizeof(unsigned short);
+  if (use_smem) smem += (nyb + 2 * L + Wy) * sizeof(T);
+#define PREFIX_DEVS_LAUNCH(W, Z)                                           \
+  launch_block<T, W, Z>(y, dyws, ystarts, ok, table, p0, ny, eps, out,     \
+                        scratch, K, Wy, nyb, L, measure, greedy, threads, \
+                        smem, stream)
+  if (threads == 32)
+    return use_smem ? PREFIX_DEVS_LAUNCH(true, true)
+                    : PREFIX_DEVS_LAUNCH(true, false);
+  return use_smem ? PREFIX_DEVS_LAUNCH(false, true)
+                  : PREFIX_DEVS_LAUNCH(false, false);
+#undef PREFIX_DEVS_LAUNCH
 }
 
 }  // namespace

@@ -293,6 +293,21 @@ _PREFIX_SYMBOL = {torch.float32: "prefix_devs_f32",
 # dynamic shared memory a block may use on the H100 (227 KB, less a margin
 # for the kernel's static shared variables)
 _SMEM_LIMIT = 232448 - 1024
+# ranks the kernel compacts at a time and the most lags it takes (one
+# thread each): kChunk and kMaxLags in csrc/prefix_devs.cu
+_PREFIX_CHUNK = 1024
+_PREFIX_MAX_LAGS = 512
+
+
+def prefix_devs_layout(Wy, nyb, L, item):
+    """Whether a ``prefix_devs`` launch keeps ``z`` in shared memory, from
+    the kernel's layout: the lags' terms, the staged deltas, e and the
+    chunk's ok list always, ``z`` while it fits beside them (else global
+    scratch)."""
+    fixed = (L + 3 * Wy + _PREFIX_CHUNK) * item + 4 * _PREFIX_CHUNK
+    if fixed > _SMEM_LIMIT:
+        raise ValueError(f"prefix_devs: Wy={Wy} outgrows shared memory")
+    return fixed + (nyb + 2 * L + Wy) * item <= _SMEM_LIMIT
 
 
 def prefix_devs_cuda(y, dyws, ystarts, ok, agg_table, p0, ny, eps=None, *,
@@ -304,8 +319,10 @@ def prefix_devs_cuda(y, dyws, ystarts, ok, agg_table, p0, ny, eps=None, *,
     On the card the float operands share one dtype (float64 on the scan
     path), ``ystarts`` is int32, ``ok`` bool, and ``ny`` and ``eps`` are
     1-element device tensors (int32 and the float dtype), so the launch
-    needs no host sync.  ``z`` sits in shared memory while it fits the
-    block's 227 KB, else in a global scratch buffer on the same code path.
+    needs no host sync.  The kernel walks only the ``ok`` ranks (the others
+    get the committed deviation) and keeps ``z`` in shared memory while it
+    fits the block's 227 KB, else in a global scratch buffer on the same
+    code path (:func:`prefix_devs_layout`).
     """
     if y.device.type != "cuda":
         return prefix_devs_plain(y, dyws, ystarts, ok, agg_table, p0, ny, eps,
@@ -338,11 +355,12 @@ def prefix_devs_cuda(y, dyws, ystarts, ok, agg_table, p0, ny, eps=None, *,
     out = torch.empty((K,), dtype=dt, device=dev)
     if K == 0:
         return out
-    zlen = nyb + 2 * L + Wy
-    item = y.element_size()
-    use_smem = (11 * L + 2 * Wy + zlen) * item <= _SMEM_LIMIT
-    scratch = (torch.empty((1,), dtype=dt, device=dev) if use_smem
-               else torch.empty((zlen,), dtype=dt, device=dev))
+    if L > _PREFIX_MAX_LAGS:
+        raise ValueError(f"prefix_devs: the kernel takes at most "
+                         f"{_PREFIX_MAX_LAGS} lags, got L={L}")
+    use_smem = prefix_devs_layout(Wy, nyb, L, y.element_size())
+    scratch = torch.empty((1 if use_smem else nyb + 2 * L + Wy,), dtype=dt,
+                          device=dev)
     fn = _build.bind("prefix_devs", _PREFIX_SYMBOL[dt], 10, 7)
     _build.check(fn(y.data_ptr(), dyws.data_ptr(), ystarts.data_ptr(),
                     ok.data_ptr(), agg_table.data_ptr(), p0.data_ptr(),

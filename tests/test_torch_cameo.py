@@ -352,11 +352,18 @@ def test_chip_smoke_phases_rehearsal():
     assert [(k["dataset"], k["name"]) for k in report["kernels"]] == [
         (d, k) for d in ("uk_elec", "aus_elec")
         for k in per_set + (("acf_window_impact",) if d == "uk_elec"
-                            else ()) + ("prefix_devs",)]
+                            else ()) + ("prefix_devs", "prefix_devs")]
     assert all(k["max_abs_err"] == 0.0 for k in report["kernels"])
+    # prefix_devs: a random walk, then the scan's real round 3 (the card's
+    # greedy branch, dispatched as on the card)
+    pd = [k for k in report["kernels"] if k["name"] == "prefix_devs"]
+    assert [k["shape"].split(":")[0] for k in pd] == ["random",
+                                                      "real round 3"] * 2
+    assert all(0 < k["ok"] <= k["K"] and k["interior"] <= k["ok"]
+               for k in pd)
     rows = chip_smoke.kernel_rows(report)
     assert [r["name"] for r in rows] == list(chip_smoke.WRAPPERS)
-    assert [len(r["shapes"]) for r in rows] == [2, 4, 2, 3, 2]
+    assert [len(r["shapes"]) for r in rows] == [2, 4, 2, 3, 4]
     div = chip_smoke.first_divergence("cpu", length=48 * 48)
     assert div["parted"] is None and div["init"] == {}
     assert div["lockstep_rounds_differing"] == 0

@@ -32,6 +32,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro.core import cameo as jc
 from repro.core import measures as j_measures
@@ -43,6 +44,7 @@ from repro_torch import convert
 from repro_torch.core import cameo as tc
 from repro_torch.core.acf import acf_from_aggregates as t_acf_from_aggregates
 from repro_torch.kernels import fused_round as t_fused
+from repro_torch.kernels import ref as t_ref
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)          # chip_smoke.py, at the repository root
@@ -183,6 +185,183 @@ def test_prefix_devs_plain_greedy_matches_oracle():
     np.testing.assert_allclose(devs, oracle_devs, rtol=1e-8, atol=1e-9)
     assert min(abs(d - eps) for d in oracle_devs) > 1e-6
     np.testing.assert_array_equal(ok & (devs <= eps), oracle_take)
+
+
+OK_KINDS = {
+    # random, with a leading run and one whole chunk (of 16) not ok
+    "mixed": lambda rng, K: np.r_[np.zeros(5, bool), rng.random(11) > 0.3,
+                                  np.zeros(16, bool),
+                                  rng.random(K - 32) > 0.4],
+    "none": lambda rng, K: np.zeros(K, bool),
+    "all": lambda rng, K: np.ones(K, bool),
+}
+
+
+def _walk_corpus(seed, ok_kind, *, nyb=160, ny=150, K=50, Wy=12, L=8):
+    """Prefix-walk inputs whose candidates cover the kernel's cases:
+    interior windows, windows with s < L or s + Wy + L > ny, starts the
+    walk clips into [0, nyb), and runs of overlapping consecutive windows;
+    ``ok`` after ``OK_KINDS[ok_kind]``."""
+    rng = np.random.default_rng(seed)
+    y = np.zeros(nyb)
+    y[:ny] = _series(ny, seed=seed)
+    starts = rng.integers(L, ny - Wy - L, size=K)
+    starts[1::6] = rng.integers(0, L, size=len(starts[1::6]))
+    starts[2::6] = rng.integers(ny - Wy - L + 1, ny, size=len(starts[2::6]))
+    starts[3::6] = starts[2::6][:len(starts[3::6])] - 3
+    starts[4::6] = starts[3::6][:len(starts[4::6])] + 2
+    starts[5::12] = -2
+    starts[11::24] = nyb + 5
+    dyws = 0.1 * rng.standard_normal((K, Wy))
+    ok = OK_KINDS[ok_kind](rng, K)
+    agg = extract_aggregates(jnp.asarray(y[:ny]), L)
+    p0 = np.asarray(acf_from_aggregates(agg, ny))
+    table = np.asarray(j_ops.agg_to_table(agg))
+    return y, dyws, starts.astype(np.int32), ok, table, p0
+
+
+def _committed_devs(devs, ok, table, p0, ny, eps, *, L, measure, greedy):
+    """The deviation committed before each rank, from a walk's outputs
+    ``devs``: that of ``table`` itself, then the output of each ok rank that
+    commits (every ok rank unless ``greedy``)."""
+    m = (ny - torch.arange(1, L + 1)).to(table.dtype)
+    dev_c = t_ref.measure_rows(t_ref.acf_from_table(table, m)[None], p0,
+                               measure)[0]
+    out = []
+    for k in range(devs.shape[0]):
+        out.append(dev_c)
+        if ok[k] and (not greedy or devs[k] <= eps):
+            dev_c = devs[k]
+    return torch.stack(out)
+
+
+@pytest.mark.parametrize("greedy", [False, True])
+@pytest.mark.parametrize("measure", ["mae", "rmse", "cheb"])
+@pytest.mark.parametrize("ok_kind", list(OK_KINDS))
+def test_prefix_devs_skip_identity(ok_kind, measure, greedy):
+    """A rank that is not ok adds a zero delta: its output is the deviation
+    committed before it.  Bit for bit on the plain version (the kernel
+    fills such ranks with it and walks only the ok ones), to 1e-12 on the
+    Pallas kernel."""
+    L, ny, eps = 8, 150, 0.004
+    y, dyws, starts, ok, table, p0 = _walk_corpus(5, ok_kind)
+    args = (T(y), T(dyws), T(starts), T(ok), T(table), T(p0),
+            torch.tensor(ny, dtype=torch.int32), eps)
+    got = t_fused.prefix_devs_plain(*args, L=L, measure=measure,
+                                    greedy=greedy)
+    want = T(j_fused.prefix_devs_pallas(
+        jnp.asarray(y), jnp.asarray(dyws), jnp.asarray(starts),
+        jnp.asarray(ok), jnp.asarray(table), jnp.asarray(p0), ny, eps, L=L,
+        measure=measure, greedy=greedy, interpret=True))
+    skip = ~T(ok)
+    kw = dict(L=L, measure=measure, greedy=greedy)
+    c_plain = _committed_devs(got, ok, T(table), T(p0), ny, eps, **kw)
+    c_pallas = _committed_devs(want, ok, T(table), T(p0), ny, eps, **kw)
+    torch.testing.assert_close(got[skip], c_plain[skip], rtol=0, atol=0)
+    torch.testing.assert_close(want[skip], c_pallas[skip], rtol=0,
+                               atol=1e-12)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-12)
+    if greedy and ok_kind == "mixed":
+        take = ok & (got.numpy() <= eps)
+        assert 0 < take.sum() < ok.sum()
+
+
+def _schedule_walk(y, dyws, ystarts, ok, table, p0, ny, eps, *, L, measure,
+                   greedy, chunk=16):
+    """The prefix walk in the order of the ``prefix_devs`` kernel's
+    schedule, one rounded operation at a time: the ranks in chunks, only
+    each chunk's ok ranks walked, the others filled from the committed
+    deviation after the last ok rank before them; interior candidates (s >=
+    L and s + Wy + L <= ny) with the sums of d and e shared by every lag and
+    one chain of products per lag; boundary candidates with the masked sums
+    of ``rn::window_sums``, lag by lag."""
+    K, Wy = dyws.shape
+    nyb, dt = y.shape[0], y.dtype
+    z = F.pad(y, (L, L + Wy))
+    agg = table
+    l = torch.arange(1, L + 1)
+    m = (ny - l).to(dt)
+
+    def in_order(terms):             # first to last over the last axis
+        acc = terms[..., 0]
+        for j in range(1, terms.shape[-1]):
+            acc = acc + terms[..., j]
+        return acc
+
+    def deviation(sums):
+        trial = agg + sums
+        df = t_ref.acf_from_table(trial, m) - p0
+        if measure == "cheb":
+            return torch.amax(torch.abs(df)), trial
+        acc = in_order(df * df if measure == "rmse" else torch.abs(df))
+        acc = acc / torch.full((), L, dtype=dt)
+        return (torch.sqrt(acc) if measure == "rmse" else acc), trial
+
+    dev_c, _ = deviation(torch.zeros((5, L), dtype=dt))
+    out = torch.empty(K, dtype=dt)
+    for base in range(0, K, chunk):
+        okc = ok[base:base + chunk]
+        before = torch.cumsum(okc.long(), 0) - okc.long()
+        start, after = dev_c, []
+        for p in torch.nonzero(okc).view(-1).tolist():
+            k = base + p
+            s = int(ystarts[k].clamp(0, nyb - 1))
+            d = dyws[k]
+            zc = z[s:s + 2 * L + Wy]       # zc[L + j]: y[s + j] and after
+            e = d * (2.0 * zc[L:L + Wy] + d)
+            d_pad = F.pad(d, (0, L))
+            if s >= L and s + Wy + L <= ny:
+                sd, se = in_order(d), in_order(e)
+                prod = torch.stack([d * ((zc[L + lag:L + lag + Wy]
+                                          + zc[L - lag:L - lag + Wy])
+                                         + d_pad[lag:lag + Wy])
+                                    for lag in range(1, L + 1)])
+                sums = torch.stack([sd.expand(L), sd.expand(L),
+                                    se.expand(L), se.expand(L),
+                                    in_order(prod)])
+            else:
+                sums = None
+                for j in range(Wy):
+                    h = (s + j <= ny - 1 - l).to(dt)
+                    tl = (s + j >= l).to(dt)
+                    inner = (zc[L + j + l] * h + zc[L + j - l] * tl) \
+                        + d_pad[j + l] * h
+                    v = torch.stack([d[j] * h, d[j] * tl, e[j] * h,
+                                     e[j] * tl, d[j] * inner])
+                    sums = v if sums is None else sums + v
+            dev, trial = deviation(sums)
+            out[k] = dev
+            if not greedy or dev <= eps:
+                dev_c, agg = dev, trial
+                z = z.index_put((s + L + torch.arange(Wy),), zc[L:L + Wy] + d)
+            after.append(dev_c)
+        for p in range(okc.shape[0]):
+            if not okc[p]:
+                c = int(before[p])
+                out[base + p] = start if c == 0 else after[c - 1]
+    return out
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("greedy", [False, True])
+@pytest.mark.parametrize("measure", ["mae", "rmse", "cheb"])
+@pytest.mark.parametrize("ok_kind", list(OK_KINDS))
+def test_prefix_devs_schedule_matches_plain(ok_kind, measure, greedy, dtype):
+    """The kernel's schedule (chunks of 16 here, so K = 50 spans four)
+    against the plain walk, bit for bit."""
+    L, ny = 8, 150
+    y, dyws, starts, ok, table, p0 = _walk_corpus(7, ok_kind)
+    args = [T(a).to(dtype) for a in (y, dyws)] + [T(starts), T(ok)] + [
+        T(a).to(dtype) for a in (table, p0)]
+    kw = dict(L=L, measure=measure)
+    curve = t_fused.prefix_devs_plain(*args, ny, **kw)
+    eps = torch.sort(curve).values[25]
+    want = t_fused.prefix_devs_plain(*args, ny, eps, greedy=greedy, **kw)
+    got = _schedule_walk(*args, ny, eps, greedy=greedy, **kw)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    s = np.clip(starts, 0, 159)
+    interior = (s >= L) & (s + 12 + L <= ny)
+    assert interior.any() and (~interior).any()
 
 
 # ---------------------------------------------------------------------------
@@ -414,22 +593,36 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("nyb,ny", [(160, 150), (40000, 39000)])
-def test_gpu_prefix_devs(cuda, nyb, ny):
-    """Shared-memory z (nyb = 160) and the global-scratch layout (nyb =
-    40,000: z outgrows 227 KB)."""
-    y, dyws, starts, ok, table, p0 = _prefix_setup(seed=11, nyb=nyb, ny=ny,
-                                                   K=40, Wy=16, L=8)
-    args = [T(a).to(cuda) for a in (y, dyws, starts, ok, table, p0)]
-    args += [torch.tensor([ny], dtype=torch.int32, device=cuda),
-             torch.tensor([0.02], dtype=torch.float64, device=cuda)]
-    for greedy in (False, True):
-        for measure in ("mae", "rmse", "cheb"):
-            got = t_fused.prefix_devs_cuda(*args, L=8, measure=measure,
-                                           greedy=greedy)
-            want = t_fused.prefix_devs_plain(*args, L=8, measure=measure,
-                                             greedy=greedy)
-            torch.testing.assert_close(got, want, rtol=1e-12, atol=0)
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("form", ["warp", "block"])
+@pytest.mark.parametrize("nyb,ny", [(160, 150), (60000, 59000)])
+def test_gpu_prefix_devs(cuda, nyb, ny, form, dtype):
+    """Bit for bit equal to the plain version: z in shared memory (nyb =
+    160) and in the global-scratch layout (nyb = 60,000: z outgrows 227
+    KB); the one-warp block (L <= 32) and a two-warp one (L = 36); every
+    rank ok, none ok, and K = 1,300 across two chunks of 1,024 with
+    interior, boundary, clipped and overlapping windows."""
+    L, Wy = (8, 12) if form == "warp" else (36, 40)
+    use_smem = t_fused.prefix_devs_layout(
+        Wy, nyb, L, torch.empty((), dtype=dtype).element_size())
+    assert use_smem == (nyb == 160)
+    for ok_kind, K in (("mixed", 1300), ("none", 60), ("all", 60)):
+        y, dyws, starts, ok, table, p0 = _walk_corpus(
+            11, ok_kind, nyb=nyb, ny=ny, K=K, Wy=Wy, L=L)
+        args = [T(a).to(cuda, dtype) for a in (y, dyws)]
+        args += [T(starts).to(cuda), T(ok).to(cuda)]
+        args += [T(a).to(cuda, dtype) for a in (table, p0)]
+        args.append(torch.tensor([ny], dtype=torch.int32, device=cuda))
+        curve = t_fused.prefix_devs_plain(*args, L=L)
+        args.append(torch.sort(curve).values[K // 2].reshape(1))
+        for greedy in (False, True):
+            for measure in ("mae", "rmse", "cheb"):
+                got = t_fused.prefix_devs_cuda(*args, L=L, measure=measure,
+                                               greedy=greedy)
+                want = t_fused.prefix_devs_plain(*args, L=L,
+                                                 measure=measure,
+                                                 greedy=greedy)
+                torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 @pytest.mark.gpu
