@@ -21,7 +21,11 @@ Phases, each of which fails the run (non-zero exit) on a wrong result:
    the scan's prefix walk (prefix_devs, greedy and not, held exactly: a
    random walk over each dataset's k_max ranks, and the real lock-step
    round 3 of each dataset's scan, its arguments captured through the
-   round body's hook, with K, the ok count and the interior count);
+   round body's hook, with K, the ok count and the interior count); the
+   two Eq. 9 window kernels are held exactly too, also on a
+   boundary-heavy case each (every start within L + W of either end,
+   with its interior count); and an empty kernel, built and bound as the
+   others, timed as the launch floor;
 4. main paths — ``compress()`` on the card with, for each run, every
    kernel of its path launched, deviation <= eps, a from-scratch float64
    re-measure on the CPU agreeing to 1e-9, endpoints kept and kept values
@@ -36,10 +40,12 @@ Phases, each of which fails the run (non-zero exit) on a wrong result:
 5. diagnostics — a lock-step scan round on uk_elec (from one carry on the
    card, the greedy branch with the prefix_devs kernel and with its plain
    version must take the same candidates), torch.profiler breakdowns of
-   the uk_elec rounds run and both scan runs
+   the uk_elec rounds run, both scan runs and 256 pops of the uk_elec
+   sequential run at 4,096 points
    (``chiprun_out/profile_<dataset>_<path>.txt``: each hand kernel's
-   device time a round, the card's idle share and the ok ranks the prefix
-   walks take a round), and the round
+   device time a round or a pop, the launches a round or a pop, the
+   card's idle share and the ok ranks the prefix walks take a round), and
+   the round
    where aus_elec's card run parts from its CPU run with what differs
    there (``chiprun_out/diverge_aus_elec.json``); then a
    ``{"kernels": [...]}`` line;
@@ -109,12 +115,14 @@ REPLACES = {"lag_dot": "src/repro/kernels/lag_dot.py:42",
 # every operation as their plain versions do, so all of them come out bit
 # for bit equal; the tolerances admit another summation order).
 TOL_F64 = (1e-10, 1e-12)
-# prefix_devs is held exactly: it claims bit-equality, and the scan's
-# decisions depend on every bit.
+# prefix_devs and the two Eq. 9 window kernels are held exactly: each
+# claims bit-equality, and the rankings and the scan's decisions depend on
+# every bit.
 TOL = {"lag_dot": (1e-10, 1e-10), "acf_impact": (1e-4, 1e-6),
-       "window_rows": (1e-4, 1e-6), "acf_window_impact": TOL_F64,
+       "window_rows": (0.0, 0.0), "acf_window_impact": (0.0, 0.0),
        "prefix_devs": (0.0, 0.0)}
 DATASETS = ("uk_elec", "aus_elec")
+MEASURES = ("mae", "rmse", "cheb")
 EPS = 1e-2
 # the main paths of phase 4: (name, CameoConfig overrides, kernels the path
 # launches, whether its CR is held within 5% of the CPU path's)
@@ -235,8 +243,9 @@ def kernel_inputs(device, name: str, length=None, seed: int = 0):
 
 def phase_kernels(device, name: str, length=None) -> list:
     """Each kernel against its plain version at ``name``'s main-path
-    shapes; one entry per kernel (window_rows: its two tier launches of
-    one full-size round together)."""
+    shapes; one entry per kernel and shape (window_rows: its two tier
+    launches of one full-size round together, then its boundary-heavy
+    case)."""
     cfg, n, nb, ny, y64, table, p0, dval = kernel_inputs(device, name,
                                                          length)
     L, kap, nyb = cfg.lags, cfg.kappa, y64.shape[0]
@@ -286,49 +295,23 @@ def phase_kernels(device, name: str, length=None) -> list:
             y32, d32, t32, p32, **kw), device),
         library_ms=None, bound_ms=bnd, bound_by=by))
 
-    # window_rows: Eq. 9 tier impacts at the full-size round's capacities,
-    # tier B (spans 2..8) and tier C (9..64) mapped onto y
-    W, WB = cfg.window, cameo._TIER_SMALL_W
-    tiers = []
-    scale = float(torch.std(d32)) * kap
-    for K, Wx in ((min(nb, max(24, nb // 24)), WB),
-                  (min(nb, max(16, nb // 48)), W)):
-        Wy = Wx if kap == 1 else Wx // kap + 2
-        starts = torch.from_numpy(
-            rng.integers(1, ny - Wy, K).astype(np.int32)).to(device)
-        dyws = torch.from_numpy(
-            (rng.standard_normal((K, Wy)) * scale).astype(np.float32)
-        ).to(device)
-        args = (y32, dyws, starts, t32, ny_t, p32)
-        e = 0.0
-        for measure in ("mae", "rmse", "cheb"):
-            got = _fused.window_rows_cuda(*args, L=L, measure=measure)
-            want = _fused.window_rows_plain(*args, L=L, measure=measure)
-            e = max(e, check_close(
-                f"{name} window_rows (K={K}, Wy={Wy}, {measure})",
-                "window_rows", got, want))
-        # per (candidate, lag): 4 Wy for the bilinear sum, 2 for the tail
-        # sums, 5 to add the table, 12 for Eq. 2, 3 for the measure; per
-        # candidate 3 Wy for e and 2 Wy for the prefix sums of d and e
-        bnd, by = bound_ms(
-            (K * Wy + K + min(nyb, K * (Wy + 2 * L)) + 6 * L + K) * 4,
-            K * (L * (4.0 * Wy + 22) + 5.0 * Wy), FP32_FLOPS)
-        tiers.append(dict(
-            name="window_rows", shape=f"K={K} Wy={Wy} L={L} float32",
-            max_abs_err=e,
-            ms=device_ms(lambda: _fused.window_rows_cuda(
-                *args, L=L, measure="mae"), device),
-            plain_ms=device_ms(lambda: _fused.window_rows_plain(
-                *args, L=L, measure="mae"), device),
-            library_ms=None, bound_ms=bnd, bound_by=by))
+    # window_rows: Eq. 9 tier impacts at the full-size round's capacities
+    # (tiers B and C together, as one round launches them), then a
+    # boundary-heavy case
+    tiers = [window_rows_entry(device, name, c)
+             for c in window_rows_cases(device, name, length)]
     row = dict(tiers[0])
-    row["shape"] = " + ".join(t["shape"] for t in tiers)
-    row["max_abs_err"] = max(t["max_abs_err"] for t in tiers)
+    main = tiers[:2]
+    row["shape"] = " + ".join(t["shape"] for t in main)
+    row["max_abs_err"] = max(t["max_abs_err"] for t in main)
     for key in ("ms", "plain_ms", "bound_ms"):
-        vals = [t[key] for t in tiers]
+        vals = [t[key] for t in main]
         row[key] = None if None in vals else sum(vals)
-    row["bound_by"] = max(tiers, key=lambda t: t["bound_ms"])["bound_by"]
+    row["bound_by"] = max(main, key=lambda t: t["bound_ms"])["bound_by"]
     out.append(row)
+    out += tiers[2:]
+    out += [window_impact_entry(device, c)
+            for c in window_impact_cases(device, name, length)]
     out += phase_kernels_f64(device, cfg, nb, ny, y64, table, p0, rng)
     # prefix_devs on the arguments of the dataset's real lock-step scan round
     cap = capture_round(device, name, length=length)
@@ -337,6 +320,151 @@ def phase_kernels(device, name: str, length=None) -> list:
     for r in out:
         r["dataset"] = name
     return out
+
+
+def _edge_starts(rng, ny: int, W: int, L: int, n: int) -> np.ndarray:
+    """``n`` window starts within L + W of either end of [0, ny - W]:
+    boundary-heavy, most windows meet a head or a tail mask."""
+    hi = ny - W
+    return np.concatenate([
+        rng.integers(0, min(L + W, hi + 1), n - n // 2),
+        rng.integers(max(0, hi - L - W), hi + 1, n // 2)]).astype(np.int32)
+
+
+def window_rows_cases(device, name: str, length=None) -> list:
+    """window_rows' phase-3 cases at ``name``'s main-path shapes: tier B
+    (spans 2..8) and tier C (9..64) at the full-size round's capacities,
+    mapped onto y, with starts across the series; then a boundary-heavy
+    case at tier C's shape, every start within L + Wy of either end.  Each
+    holds its label, K, Wy, L, nyb, interior count and the wrapper's
+    arguments."""
+    cfg, _, nb, ny, y64, table, p0, dval = kernel_inputs(device, name,
+                                                         length)
+    L, kap = cfg.lags, cfg.kappa
+    rng = np.random.default_rng(2)
+    ny_t = torch.full((), ny, dtype=torch.int32, device=device)
+    scale = float(torch.std(dval.float())) * kap
+    W, WB = cfg.window, cameo._TIER_SMALL_W
+    KB, KC = min(nb, max(24, nb // 24)), min(nb, max(16, nb // 48))
+    cases = []
+    for label, K, Wx, edge in (("tier B", KB, WB, False),
+                               ("tier C", KC, W, False),
+                               ("boundary-heavy", KC, W, True)):
+        Wy = Wx if kap == 1 else Wx // kap + 2
+        st = _edge_starts(rng, ny, Wy, L, K) if edge else \
+            rng.integers(1, ny - Wy, K).astype(np.int32)
+        starts = torch.from_numpy(st).to(device)
+        dyws = torch.from_numpy(
+            (rng.standard_normal((K, Wy)) * scale).astype(np.float32)
+        ).to(device)
+        cases.append(dict(
+            label=label, K=K, Wy=Wy, L=L, nyb=y64.shape[0],
+            interior=int(_ref.interior_windows(starts, Wy, L, ny).sum()),
+            args=(y64.float(), dyws, starts, table.float(), ny_t,
+                  p0.float())))
+    return cases
+
+
+def window_rows_bound(K, Wy, L, nyb):
+    """Per (candidate, lag): 4 Wy for the bilinear sum, 2 for the tail
+    sums, 5 to add the table, 12 for Eq. 2, 3 for the measure; per
+    candidate 3 Wy for e and 2 Wy for the prefix sums of d and e.  Bytes:
+    deltas, starts, the context y once, table + p0, the output."""
+    return bound_ms(
+        (K * Wy + K + min(nyb, K * (Wy + 2 * L)) + 6 * L + K) * 4,
+        K * (L * (4.0 * Wy + 22) + 5.0 * Wy), FP32_FLOPS)
+
+
+def window_rows_entry(device, name: str, c: dict) -> dict:
+    """window_rows against its plain version on case ``c`` under every
+    measure; one phase-3 entry, timed under mae."""
+    K, Wy, L, args = c["K"], c["Wy"], c["L"], c["args"]
+    err = 0.0
+    for measure in MEASURES:
+        err = max(err, check_close(
+            f"{name} window_rows {c['label']} (K={K}, Wy={Wy}, {measure})",
+            "window_rows", _fused.window_rows_cuda(*args, L=L,
+                                                   measure=measure),
+            _fused.window_rows_plain(*args, L=L, measure=measure)))
+    bnd, by = window_rows_bound(K, Wy, L, c["nyb"])
+    return dict(
+        name="window_rows",
+        shape=f"{c['label']}: K={K} Wy={Wy} L={L} interior={c['interior']} "
+              f"float32",
+        max_abs_err=err,
+        ms=device_ms(lambda: _fused.window_rows_cuda(
+            *args, L=L, measure="mae"), device),
+        plain_ms=device_ms(lambda: _fused.window_rows_plain(
+            *args, L=L, measure="mae"), device),
+        library_ms=None, bound_ms=bnd, bound_by=by)
+
+
+def window_impact_cases(device, name: str, length=None) -> list:
+    """acf_window_impact's phase-3 cases, float64, W = 64 mapped onto y:
+    the sequential ReHeap's P = 2(hops + 1) = 50 with starts across the
+    series; off the driven paths, the partitioned mode's ranking chunk (P
+    = impact_chunk, kappa = 1 only; no path of the port runs it yet); and a
+    boundary-heavy ReHeap, every start within L + W of either end."""
+    cfg, _, _, ny, y64, table, p0, _ = kernel_inputs(device, name, length)
+    L, kap = cfg.lags, cfg.kappa
+    rng = np.random.default_rng(3)
+    W = 64 if kap == 1 else 64 // kap + 2
+    scale = float(torch.std(y64[:ny])) * 0.05
+    specs = [("ReHeap", 50, False)]
+    if kap == 1:
+        specs.append(("ranking chunk of the partitioned mode, unported: "
+                      "off path", min(cfg.impact_chunk, ny), False))
+    specs.append(("boundary-heavy ReHeap", 50, True))
+    cases = []
+    for label, P, edge in specs:
+        st = _edge_starts(rng, ny, W, L, P) if edge else \
+            rng.integers(0, ny - W, P).astype(np.int32)
+        starts = torch.from_numpy(st).to(device)
+        dw = torch.from_numpy(rng.standard_normal((P, W)) * scale).to(device)
+        ctx = _ref.candidate_contexts(y64[:ny], starts, L=L, W=W)
+        cases.append(dict(
+            label=label, P=P, W=W, L=L, ny=ny,
+            interior=int(_ref.interior_windows(starts, W, L, ny).sum()),
+            args=(ctx, dw, starts, table, p0)))
+    return cases
+
+
+def window_impact_entry(device, c: dict) -> dict:
+    """acf_window_impact against its plain version on case ``c`` under
+    every measure; one phase-3 entry, timed under mae."""
+    P, W, L, ny, args = c["P"], c["W"], c["L"], c["ny"], c["args"]
+    err = 0.0
+    for measure in MEASURES:
+        kw = dict(ny=ny, L=L, measure=measure)
+        err = max(err, check_close(
+            f"acf_window_impact {c['label']} (P={P}, W={W}, {measure})",
+            "acf_window_impact", _awi.acf_window_impact_cuda(*args, **kw),
+            _awi.acf_window_impact_plain(*args, **kw)))
+    kw = dict(ny=ny, L=L, measure="mae")
+    bnd, by = window_impact_bound(P, W, L, 8, FP64_FLOPS)
+    return dict(
+        name="acf_window_impact",
+        shape=f"{c['label']}: P={P} W={W} L={L} interior={c['interior']} "
+              f"float64",
+        max_abs_err=err,
+        ms=device_ms(lambda: _awi.acf_window_impact_cuda(*args, **kw),
+                     device),
+        plain_ms=device_ms(lambda: _awi.acf_window_impact_plain(
+            *args, **kw), device, reps=3, inner=3),
+        library_ms=None, bound_ms=bnd, bound_by=by)
+
+
+def launch_floor_ms(device):
+    """Median device time of an empty kernel built and bound as the port's
+    kernels are (csrc/launch_floor.cu): the least any launch takes."""
+    if device.type != "cuda":
+        return None
+    fn = _build.bind("launch_floor", "launch_floor", 0, 0)
+
+    def launch():
+        _build.check(fn(torch.cuda.current_stream(device).cuda_stream),
+                     "launch_floor")
+    return device_ms(launch, device)
 
 
 def window_impact_bound(P, W, L, item, peak):
@@ -352,10 +480,8 @@ def window_impact_bound(P, W, L, item, peak):
 
 def phase_kernels_f64(device, cfg, nb, ny, y64, table, p0, rng) -> list:
     """The sequential mode's and the scan's float64 kernels at the main
-    paths' shapes: acf_impact at the sequential init, acf_window_impact
-    at the ReHeap (P = 2(hops + 1) = 50) and at a ranking chunk (P =
-    impact_chunk, kappa = 1 only: the partitioned mode's shape, which no
-    path of the port runs yet), and prefix_devs at the scan's k_max."""
+    paths' shapes: acf_impact at the sequential init and prefix_devs at
+    the scan's k_max (acf_window_impact: window_impact_cases)."""
     L, kap, nyb = cfg.lags, cfg.kappa, y64.shape[0]
     out = []
     # acf_impact, float64: the sequential init over SEQ_LENGTHS points
@@ -387,36 +513,7 @@ def phase_kernels_f64(device, cfg, nb, ny, y64, table, p0, rng) -> list:
             y_s, d_s, t_s, p_s, **kw), device),
         library_ms=None, bound_ms=bnd, bound_by=by))
 
-    # acf_window_impact, float64: ReHeap windows (W = 64 mapped onto y)
-    W = 64 if kap == 1 else 64 // kap + 2
     scale = float(torch.std(y64[:ny])) * 0.05
-    chunk = min(cfg.impact_chunk, ny)
-    for P in ((50, chunk) if kap == 1 else (50,)):
-        starts = torch.from_numpy(
-            rng.integers(0, ny - W, P).astype(np.int32)).to(device)
-        dw = torch.from_numpy(rng.standard_normal((P, W)) * scale).to(device)
-        ctx = _ref.candidate_contexts(y64[:ny], starts, L=L, W=W)
-        args = (ctx, dw, starts, table, p0)
-        err = 0.0
-        for measure in ("mae", "rmse", "cheb"):
-            kw = dict(ny=ny, L=L, measure=measure)
-            err = max(err, check_close(
-                f"acf_window_impact (P={P}, W={W}, {measure})",
-                "acf_window_impact", _awi.acf_window_impact_cuda(*args, **kw),
-                _awi.acf_window_impact_plain(*args, **kw)))
-        kw = dict(ny=ny, L=L, measure="mae")
-        bnd, by = window_impact_bound(P, W, L, 8, FP64_FLOPS)
-        out.append(dict(
-            name="acf_window_impact",
-            shape=f"P={P} W={W} L={L} float64" + (
-                "" if P == 50 else " (ranking chunk of the partitioned mode, unported: off path)"),
-            max_abs_err=err,
-            ms=device_ms(lambda: _awi.acf_window_impact_cuda(*args, **kw),
-                         device),
-            plain_ms=device_ms(lambda: _awi.acf_window_impact_plain(
-                *args, **kw), device, reps=3, inner=3),
-            library_ms=None, bound_ms=bnd, bound_by=by))
-
     # prefix_devs, float64: one scan round's walk over K = k_max ranks
     K = max(1, min(int(cfg.alpha * nb), nb - 2))
     Wy = cfg.window if kap == 1 else cfg.window // kap + 2
@@ -682,37 +779,72 @@ def scan_lockstep(device, name: str = "uk_elec", rounds: int = 3) -> dict:
                 carries_equal=same)
 
 
-def profile_main(device, name: str = "uk_elec", path: str = "rounds") -> dict:
-    """torch.profiler breakdown of one main-path run (the card's busy time
-    by kernel, each hand kernel's device time and launches a round, the
-    idle share, and the ranks and ok ranks the prefix walks take a round)
-    written under chiprun_out/."""
+def _profiled_sequential(device, name: str, length: int, pops: int):
+    """A sequential run of ``name`` at ``length`` points stepped past its
+    first block of pops, then ``pops`` more under torch.profiler, in blocks
+    of 128 with the host's one condition read after each, as
+    compress_sequential drives them.  Returns (profiler, wall s, pops)."""
     from torch.profiler import ProfilerActivity, profile
-    cfg, _, _ = _path_cfg(name, path)
-    x = make_dataset(name, seed=0)
-    # warm, counting the ranks and the ok ranks of every prefix walk (the
-    # profiled run repeats the same rounds)
-    walks = []
-    kernel = _fused.prefix_devs_cuda
-
-    def counting(*a, **kw):
-        walks.append((a[3].numel(), a[3].sum()))
-        return kernel(*a, **kw)
-    # the wrapper counts its launches on the name it is bound to
-    counting.launches = kernel.launches
-    _fused.prefix_devs_cuda = counting
-    try:
-        cameo.compress(x, cfg, device=device)
-    finally:
-        _fused.prefix_devs_cuda = kernel
-        kernel.launches = counting.launches
+    cfg, _, _ = _path_cfg(name, "sequential")
+    x = torch.from_numpy(make_dataset(name, seed=0, length=length)).to(device)
+    carry, p0 = cameo._sequential_init(x, cfg)
+    probe, body = cameo._sequential_fns(cfg, x.shape[0], p0)
+    block = cameo._SEQ_BLOCK
+    for _ in range(block):
+        carry = body(carry)
+    it0 = int(carry[8])
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        res = cameo.compress(x, cfg, device=device)
+        for _ in range(pops // block):
+            for _ in range(block):
+                carry = body(carry)
+            require(bool(probe(carry)),
+                    f"{name} sequential ended inside the profiled pops")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    return prof, wall, int(carry[8]) - it0
+
+
+def profile_main(device, name: str = "uk_elec", path: str = "rounds",
+                 length=None, pops: int = 256) -> dict:
+    """torch.profiler breakdown of one main-path run (rounds and scan: a
+    whole run; sequential: ``pops`` pops of a run at ``length`` points):
+    the card's busy time by kernel, each hand kernel's device time and
+    launches an iteration (a round or a pop), the idle share, and for the
+    scan the ranks and ok ranks the prefix walks take a round; written
+    under chiprun_out/."""
+    from torch.profiler import ProfilerActivity, profile
+    walks = []
+    if path == "sequential":
+        prof, wall, iters = _profiled_sequential(device, name, length, pops)
+    else:
+        cfg, _, _ = _path_cfg(name, path)
+        x = make_dataset(name, seed=0, length=length)
+        # warm, counting the ranks and the ok ranks of every prefix walk
+        # (the profiled run repeats the same rounds)
+        kernel = _fused.prefix_devs_cuda
+
+        def counting(*a, **kw):
+            walks.append((a[3].numel(), a[3].sum()))
+            return kernel(*a, **kw)
+        # the wrapper counts its launches on the name it is bound to
+        counting.launches = kernel.launches
+        _fused.prefix_devs_cuda = counting
+        try:
+            cameo.compress(x, cfg, device=device)
+        finally:
+            _fused.prefix_devs_cuda = kernel
+            kernel.launches = counting.launches
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res = cameo.compress(x, cfg, device=device)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        iters = int(res.iters)
     events = prof.key_averages()
     sort_key = ("self_device_time_total"
                 if hasattr(events[0], "self_device_time_total")
@@ -724,7 +856,7 @@ def profile_main(device, name: str = "uk_elec", path: str = "rounds") -> dict:
             dev_us[ev.key] = dev_us.get(ev.key, 0.0) + t
             dev_n[ev.key] = dev_n.get(ev.key, 0) + int(ev.count)
     busy = sum(dev_us.values()) / 1e6
-    rounds = max(int(res.iters), 1)
+    per = max(iters, 1)
     hand = {}
     for kname in WRAPPERS:
         # the kernels sit in anonymous namespaces: "(anonymous
@@ -734,7 +866,7 @@ def profile_main(device, name: str = "uk_elec", path: str = "rounds") -> dict:
         if keys:
             hand[kname] = dict(device_us=us,
                                launches=sum(dev_n[k] for k in keys),
-                               device_ms_per_round=us / 1e3 / rounds,
+                               device_us_per_iter=us / per,
                                share_of_wall=us / 1e6 / wall)
     hand_s = sum(h["device_us"] for h in hand.values()) / 1e6
     out_dir = ROOT / "chiprun_out"
@@ -742,19 +874,22 @@ def profile_main(device, name: str = "uk_elec", path: str = "rounds") -> dict:
     (out_dir / f"profile_{name}_{path}.txt").write_text(
         events.table(sort_by=sort_key, row_limit=80))
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:10]
-    return dict(dataset=name, path=path, rounds=int(res.iters), wall_s=wall,
-                host_s_per_round=wall / rounds,
-                prefix_walks=len(walks),
-                prefix_ranks_per_round=sum(k for k, _ in walks) / rounds,
-                prefix_ok_ranks_per_round=sum(int(o) for _, o in walks)
-                / rounds,
-                device_busy_s=busy, idle_share=1.0 - busy / wall,
-                device_launches=sum(dev_n.values()),
-                launches_per_round=sum(dev_n.values()) / rounds,
-                hand_kernels_s=hand_s,
-                hand_kernel_share_of_busy=hand_s / busy if busy else None,
-                hand_kernels=hand,
-                top_kernels_us={k[:60]: v for k, v in top})
+    out = dict(dataset=name, path=path,
+               iter="pop" if path == "sequential" else "round",
+               iters=iters, wall_s=wall, host_s_per_iter=wall / per,
+               device_busy_s=busy, idle_share=1.0 - busy / wall,
+               device_launches=sum(dev_n.values()),
+               launches_per_iter=sum(dev_n.values()) / per,
+               hand_kernels_s=hand_s,
+               hand_kernel_share_of_busy=hand_s / busy if busy else None,
+               hand_kernels=hand,
+               top_kernels_us={k[:60]: v for k, v in top})
+    if path == "scan":
+        out.update(prefix_walks=len(walks),
+                   prefix_ranks_per_round=sum(k for k, _ in walks) / per,
+                   prefix_ok_ranks_per_round=sum(int(o) for _, o in walks)
+                   / per)
+    return out
 
 
 _CARRY_FIELDS = ("xr", "alive", "prev", "nxt", "y", "tbl", "alpha", "dev",
@@ -922,6 +1057,9 @@ def run_phases(device, *, uk_length=None, aus_length=None,
                 f"{TOL[k['name']][1]} x max|plain| ms={k['ms']} "
                 f"plain_ms={k['plain_ms']} library_ms={k['library_ms']} "
                 f"bound_ms={k['bound_ms']:.3e} ({k['bound_by']})")
+    floor = launch_floor_ms(device)
+    log(f"launch_floor ms={floor} (an empty kernel, built and bound as the "
+        f"port's kernels are)")
     runs = []
     totals = dict.fromkeys(WRAPPERS, 0)
     for path in PATHS:
@@ -944,7 +1082,8 @@ def run_phases(device, *, uk_length=None, aus_length=None,
     for name in DATASETS:
         # the scan's CR beside the card's backoff CR
         by[(name, "scan")]["cr_backoff"] = by[(name, "rounds")]["cr"]
-    return dict(kernels=kernels, runs=runs, launches=totals)
+    return dict(kernels=kernels, runs=runs, launches=totals,
+                launch_floor_ms=floor)
 
 
 def kernel_rows(report) -> list:
@@ -1010,6 +1149,11 @@ def main() -> int:
     for name, path in (("uk_elec", "rounds"), ("uk_elec", "scan"),
                        ("aus_elec", "scan")):
         print("profile " + json.dumps(profile_main(device, name, path)))
+    # a block of sequential pops: the host dispatch a pop, and what the
+    # ReHeap's acf_window_impact takes of it
+    print("profile " + json.dumps(profile_main(
+        device, "uk_elec", "sequential",
+        length=SEQ_LENGTHS["uk_elec"], pops=256)))
     div = first_divergence(device)
     (ROOT / "chiprun_out" / "diverge_aus_elec.json").write_text(
         json.dumps(div, indent=1))

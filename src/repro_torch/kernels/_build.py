@@ -6,7 +6,9 @@ any kernel (all sources at once, one ``nvcc`` each, in parallel), into
 ``build/repro_torch/`` at the repository root.  The libraries are loaded
 with ``ctypes``: pointers and the stream travel as ``c_void_p``, integers
 as ``c_int``, and every entry point returns ``cudaGetLastError()``.
-Nothing here runs at import.
+Nothing here runs at import.  ``csrc/launch_floor.cu`` is built with the
+rest though no path launches it: an empty kernel that ``chip_smoke.py``
+and the A/B tool time as the least a launch takes.
 """
 from __future__ import annotations
 
@@ -96,6 +98,15 @@ def build_all() -> dict:
 def library(stem: str) -> ctypes.CDLL:
     """The loaded ``lib<stem>.so`` (built on first use)."""
     return _BUILDER.library(stem)
+
+
+def use_library(stem: str, lib: ctypes.CDLL) -> None:
+    """Launch through ``lib`` in place of ``lib<stem>.so`` from now on in
+    this process: tools that time another build of a kernel against this
+    one swap the two through here."""
+    _BUILDER.library(stem)
+    with _BUILDER._lock:
+        _BUILDER._libs[stem] = lib
 
 
 def bind(stem: str, symbol: str, n_ptr: int, n_int: int):

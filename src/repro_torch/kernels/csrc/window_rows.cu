@@ -17,81 +17,124 @@
 // flops (the bilinear sum, then the five moments, Eq. 2 and the measure)
 // against (Wy + 1) * 4 bytes per candidate, so it is bound by operations;
 // at the main-path sizes (K = 768 x Wy 8, K = 384 x Wy 64, L = 48) that is
-// a few MFLOP, well under a microsecond, so the launch dominates (PERF.md
-// has the card's numbers).
-// Design: one block per candidate stages its Wy + 2L context, its Wy deltas
-// and e = d (2 z + d) in shared memory; one thread per lag forms the five
-// masked sums and the Eq. 2 row with tiny = 1e-30 (fused_round.py:236);
-// one thread then reduces the row against p0, lags in order.  Candidates
-// are independent, so blocks share nothing.
+// a few MFLOP, well under a microsecond, so a launch's latency and one
+// candidate's dependent chain dominate (PERF.md has the card's numbers).
+//
+// Design (as acf_window_impact.cu, through window.cuh): one thread per lag,
+// floor(32 / L) candidates a warp at L <= 32 (aus_elec's L = 7: 4 a warp,
+// so its tier of 10,240 fits one wave of 256-thread blocks), ceil(L / 32)
+// warps a candidate past that.  One staging pass: each lane issues its
+// start, ny, its lag's table column and p0 entry up front, then gathers
+// its share of the context; the lane that gathers z[i] inside the window
+// also copies d[i] and forms e[i] = d (2 z + d); d is padded with L zeros.
+// One barrier (__syncwarp at L <= 32).  Interior fast path: where
+// ys >= L and ys + Wy <= ny - L, the head cut is Wy and the tail cut 0 for
+// every lag, so the prefix sums cd and ce (from 0.0f, as the plain
+// version's exclusive prefix sums start) are taken whole, and cd - 0 is
+// exact; the lane forms them beside its lag's bilinear chain (from 0.0f).
+// Other candidates walk the window with the head/tail cuts ch and ct per
+// lag, unchanged.  Each lane stores its lag's measure term; the
+// candidate's first lane reduces the terms in lag order after one more
+// barrier.  Tiny = 1e-30 in Eq. 2 (fused_round.py:236).  Products are
+// rounded on their own (rn.cuh, no fused multiply-add) and sums run first
+// to last, as in the plain version, so the output equals it bit for bit.
 #include <cuda_runtime.h>
 
 #include "rn.cuh"
+#include "window.cuh"
 
 namespace {
 
-__global__ void window_rows_kernel(const float* __restrict__ dyws,
-                                   const int* __restrict__ ystarts,
-                                   const float* __restrict__ y,
-                                   const float* __restrict__ table,
-                                   const int* __restrict__ ny_ptr,
-                                   const float* __restrict__ p0,
-                                   float* __restrict__ out, int Wy, int nyb,
-                                   int L, int measure) {
+__global__ void __launch_bounds__(win::kBlock)
+window_rows_kernel(const float* __restrict__ dyws,
+                   const int* __restrict__ ystarts,
+                   const float* __restrict__ y,
+                   const float* __restrict__ table,
+                   const int* __restrict__ ny_ptr,
+                   const float* __restrict__ p0, float* __restrict__ out,
+                   int K, int Wy, int nyb, int L, int measure, int G,
+                   int cpu, int cpb, int M) {
   extern __shared__ float sm[];
-  float* ctx = sm;                 // [Wy + 2L]: ctx[i] = y[s - L + i]
-  float* d = ctx + Wy + 2 * L;     // [Wy]
-  float* e = d + Wy;               // [Wy]
-  float* row = e + Wy;             // [L]
-  const int k = blockIdx.x;
-  const int ys = ystarts[k];
-  const int s = min(max(ys, 0), nyb - 1);
-  for (int i = threadIdx.x; i < Wy + 2 * L; i += blockDim.x) {
-    const int g = s - L + i;
-    ctx[i] = (g >= 0 && g < nyb) ? y[g] : 0.0f;
+  const win::Slot sl = win::slot(L, G, cpu, M);
+  const int k = blockIdx.x * cpb + sl.cand;
+  const bool live = sl.active && k < K;
+  const int C = Wy + 2 * L;
+  // per candidate: ctx [C] (ctx[i] = y[s - L + i]), d [Wy + L] (zeros past
+  // Wy), e [Wy], row [L]
+  float* ctx = sm + sl.cand * (3 * Wy + 4 * L);
+  float* d = ctx + C;
+  float* e = d + Wy + L;
+  float* row = e + Wy;
+  const int l0 = sl.r + 1;
+
+  int ys = 0, ny = 0;
+  float tab[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f}, pz = 0.0f;
+  auto lag_loads = [&](int l) {
+    for (int q = 0; q < 5; ++q) tab[q] = table[q * L + l - 1];
+    pz = p0[l - 1];
+  };
+  if (live) {
+    ys = ystarts[k];
+    ny = *ny_ptr;
+    if (l0 <= L) lag_loads(l0);
+    const int s = min(max(ys, 0), nyb - 1);
+    const float* dg = dyws + static_cast<size_t>(k) * Wy;
+    win::stage(
+        sl.r, G, C, L, Wy, ctx, d, e,
+        [&](int i) {
+          const int g = s - L + i;
+          return g >= 0 && g < nyb ? y[g] : 0.0f;
+        },
+        [&](int j) { return dg[j]; });
   }
-  for (int i = threadIdx.x; i < Wy; i += blockDim.x)
-    d[i] = dyws[static_cast<size_t>(k) * Wy + i];
-  __syncthreads();
-  for (int i = threadIdx.x; i < Wy; i += blockDim.x)
-    e[i] = rn::mul(d[i], rn::add(2.0f * ctx[L + i], d[i]));
-  __syncthreads();
-  const int ny = *ny_ptr;
-  // Products are rounded on their own (rn.cuh, no fused multiply-add) and
-  // sums run first to last, as in the plain version, so the rows equal it
-  // bit for bit.
-  for (int l = 1 + threadIdx.x; l <= L; l += blockDim.x) {
-    // head keeps ys + j <= ny-1-l  <=>  j < ny - l - ys  (a prefix);
-    // tail keeps ys + j >= l       <=>  j >= l - ys      (a suffix), taken
-    // as the total minus the prefix below l - ys.
-    const int ch = min(max(ny - l - ys, 0), Wy);
-    const int ct = min(max(l - ys, 0), Wy);
-    float cd = 0.0f, ce = 0.0f;              // running prefix sums
-    float dsx = 0.0f, dsx2 = 0.0f, cd_t = 0.0f, ce_t = 0.0f, dsxx = 0.0f;
-    for (int j = 0; j < Wy; ++j) {
-      if (j == ch) { dsx = cd; dsx2 = ce; }
-      if (j == ct) { cd_t = cd; ce_t = ce; }
-      cd = rn::add(cd, d[j]);
-      ce = rn::add(ce, e[j]);
-      const float df = j + l < Wy ? d[j + l] : 0.0f;
-      dsxx = rn::add(dsxx, rn::mul(d[j], rn::add(
-          rn::add(ctx[L + j + l], ctx[L + j - l]), df)));
+  if (L <= 32) __syncwarp(); else __syncthreads();
+
+  if (live) {
+    const bool interior = ys >= L && ys + Wy <= ny - L;
+    const float* c = ctx + L;
+    for (int l = l0; l <= L; l += G) {
+      if (l != l0) lag_loads(l);
+      float cd, ce, dsxx;   // running sums, from 0
+      float dsx, dsx2, cd_t, ce_t;
+      cd = ce = dsxx = 0.0f;
+      if (interior) {
+#pragma unroll 4
+        for (int j = 0; j < Wy; ++j) {
+          const float pj = win::bilinear(c, d, j, l);
+          cd = rn::add(cd, d[j]);
+          ce = rn::add(ce, e[j]);
+          dsxx = rn::add(dsxx, pj);
+        }
+        dsx = cd;
+        dsx2 = ce;
+        cd_t = ce_t = 0.0f;
+      } else {
+        // head keeps ys + j <= ny-1-l  <=>  j < ny - l - ys  (a prefix);
+        // tail keeps ys + j >= l       <=>  j >= l - ys      (a suffix),
+        // taken as the total minus the prefix below l - ys.
+        const int ch = min(max(ny - l - ys, 0), Wy);
+        const int ct = min(max(l - ys, 0), Wy);
+        dsx = dsx2 = cd_t = ce_t = 0.0f;
+        for (int j = 0; j < Wy; ++j) {
+          if (j == ch) { dsx = cd; dsx2 = ce; }
+          if (j == ct) { cd_t = cd; ce_t = ce; }
+          cd = rn::add(cd, d[j]);
+          ce = rn::add(ce, e[j]);
+          dsxx = rn::add(dsxx, win::bilinear(c, d, j, l));
+        }
+        if (ch == Wy) { dsx = cd; dsx2 = ce; }
+        if (ct == Wy) { cd_t = cd; ce_t = ce; }
+      }
+      const float rho = rn::acf_rho(
+          rn::add(tab[0], dsx), rn::add(tab[1], rn::sub(cd, cd_t)),
+          rn::add(tab[2], dsx2), rn::add(tab[3], rn::sub(ce, ce_t)),
+          rn::add(tab[4], dsxx), static_cast<float>(ny - l));
+      const float t = win::measure_term(measure, rn::sub(rho, pz));
+      row[l - 1] = t;
     }
-    if (ch == Wy) { dsx = cd; dsx2 = ce; }
-    if (ct == Wy) { cd_t = cd; ce_t = ce; }
-    row[l - 1] = rn::acf_rho(
-        rn::add(table[l - 1], dsx), rn::add(table[L + l - 1], rn::sub(cd, cd_t)),
-        rn::add(table[2 * L + l - 1], dsx2),
-        rn::add(table[3 * L + l - 1], rn::sub(ce, ce_t)),
-        rn::add(table[4 * L + l - 1], dsxx), static_cast<float>(ny - l));
   }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float acc = 0.0f;
-    for (int l = 0; l < L; ++l)
-      acc = rn::measure_step(measure, acc, rn::sub(row[l], p0[l]));
-    out[k] = rn::measure_final(measure, acc, L);
-  }
+  const float acc = win::reduce_lags(measure, L, sl, row);
+  if (live && sl.r == 0) out[k] = rn::measure_final(measure, acc, L);
 }
 
 }  // namespace
@@ -102,19 +145,17 @@ extern "C" int window_rows_f32(const void* dyws, const void* ystarts,
                                const void* ny, const void* p0, void* out,
                                int K, int Wy, int nyb, int L, int measure,
                                void* stream) {
-  int threads = ((L + 31) / 32) * 32;
-  if (threads > 256) threads = 256;
-  const size_t smem = (3 * Wy + 3 * L) * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        window_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  window_rows_kernel<<<K, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  win::Plan pl;
+  const size_t cand = (3 * Wy + 4 * L) * sizeof(float);
+  cudaError_t err = win::plan(K, L, cand, &pl);
+  if (err == cudaSuccess) err = win::allow_smem(window_rows_kernel, pl.smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  window_rows_kernel<<<pl.blocks, pl.threads, pl.smem,
+                       static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(dyws), static_cast<const int*>(ystarts),
       static_cast<const float*>(y), static_cast<const float*>(table),
       static_cast<const int*>(ny), static_cast<const float*>(p0),
-      static_cast<float*>(out), Wy, nyb, L, measure);
+      static_cast<float*>(out), K, Wy, nyb, L, measure, pl.G, pl.cpu, pl.cpb,
+      pl.M);
   return static_cast<int>(cudaGetLastError());
 }

@@ -47,6 +47,13 @@ def head_tail_masks(idx: torch.Tensor, ny, L: int, dtype):
     return head, tail
 
 
+def interior_windows(starts: torch.Tensor, W: int, L: int, ny):
+    """Where a window ``[s, s + W)`` has every head and tail mask of every
+    lag 1 (``s >= L`` and ``s + W - 1 <= ny - 1 - L``): the Eq. 9 window
+    kernels' fast-path test, per start."""
+    return (starts >= L) & (starts + W - 1 <= ny - 1 - L)
+
+
 def sum_in_order(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """Sum over ``dim`` one term at a time, first to last.
 

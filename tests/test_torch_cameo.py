@@ -347,13 +347,19 @@ def test_chip_smoke_phases_rehearsal():
     report = chip_smoke.run_phases(
         "cpu", uk_length=512, aus_length=48 * 48,
         seq_lengths={"uk_elec": 256, "aus_elec": 48 * 12}, log=lambda s: None)
-    per_set = ("lag_dot", "acf_impact", "window_rows", "acf_impact",
-               "acf_window_impact")
+    # the window kernels: the main cases, then a boundary-heavy one each
+    # (acf_window_impact's ranking chunk at kappa = 1 only)
     assert [(k["dataset"], k["name"]) for k in report["kernels"]] == [
         (d, k) for d in ("uk_elec", "aus_elec")
-        for k in per_set + (("acf_window_impact",) if d == "uk_elec"
-                            else ()) + ("prefix_devs", "prefix_devs")]
+        for k in ("lag_dot", "acf_impact", "window_rows", "window_rows")
+        + ("acf_window_impact",) * (3 if d == "uk_elec" else 2)
+        + ("acf_impact", "prefix_devs", "prefix_devs")]
     assert all(k["max_abs_err"] == 0.0 for k in report["kernels"])
+    edge = [k for k in report["kernels"] if "boundary-heavy" in k["shape"]]
+    assert [k["name"] for k in edge] == ["window_rows",
+                                         "acf_window_impact"] * 2
+    assert all("interior=" in k["shape"] for k in edge)
+    assert report["launch_floor_ms"] is None
     # prefix_devs: a random walk, then the scan's real round 3 (the card's
     # greedy branch, dispatched as on the card)
     pd = [k for k in report["kernels"] if k["name"] == "prefix_devs"]
@@ -363,7 +369,7 @@ def test_chip_smoke_phases_rehearsal():
                for k in pd)
     rows = chip_smoke.kernel_rows(report)
     assert [r["name"] for r in rows] == list(chip_smoke.WRAPPERS)
-    assert [len(r["shapes"]) for r in rows] == [2, 4, 2, 3, 4]
+    assert [len(r["shapes"]) for r in rows] == [2, 4, 4, 5, 4]
     div = chip_smoke.first_divergence("cpu", length=48 * 48)
     assert div["parted"] is None and div["init"] == {}
     assert div["lockstep_rounds_differing"] == 0
