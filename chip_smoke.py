@@ -13,8 +13,11 @@ Phases, each of which fails the run (non-zero exit) on a wrong result:
 3. kernels — each hand-written kernel against its plain PyTorch version at
    the main paths' shapes of both datasets (uk_elec: n = 18,432, L = 48;
    aus_elec: nb = 245,760 onto nyb = 5,120, kappa = 48, L = 7), every
-   measure, with the tolerance stated, timed with CUDA events (kernel,
-   plain version and, for lag_dot, a PyTorch conv1d yardstick): the
+   measure, with the tolerance stated (0 for every kernel but lag_dot,
+   whose float64 sums run in another order; lag_dot also gives the same
+   bits on a second call, and its cross and halo forms are held), timed
+   with CUDA events (kernel, plain version and, for lag_dot, a PyTorch
+   conv1d yardstick): the
    rounds mode's float32 kernels, the float64 forms of the sequential mode
    (acf_impact at init, acf_window_impact at the ReHeap's P = 50 and, off
    the driven paths, the partitioned mode's ranking chunk, P = 4,096) and
@@ -111,14 +114,11 @@ REPLACES = {"lag_dot": "src/repro/kernels/lag_dot.py:42",
 # Each output is held to its plain version elementwise: |got - want| <=
 # rtol |want| + floor max|want|.  The floor scales with the output, so an
 # output of the wrong scale (zeros, say) fails whatever the inputs' size.
-# Float32 outputs: rtol 1e-4; float64 outputs: 1e-10 (the kernels round
-# every operation as their plain versions do, so all of them come out bit
-# for bit equal; the tolerances admit another summation order).
-TOL_F64 = (1e-10, 1e-12)
-# prefix_devs and the two Eq. 9 window kernels are held exactly: each
-# claims bit-equality, and the rankings and the scan's decisions depend on
-# every bit.
-TOL = {"lag_dot": (1e-10, 1e-10), "acf_impact": (1e-4, 1e-6),
+# Every kernel but lag_dot rounds each operation as its plain version does
+# and sums in its order, so it is held exactly: the rankings and the scan's
+# decisions depend on every bit.  lag_dot's float64 sums run in another
+# order than the plain version's matmul: 1e-10.
+TOL = {"lag_dot": (1e-10, 1e-10), "acf_impact": (0.0, 0.0),
        "window_rows": (0.0, 0.0), "acf_window_impact": (0.0, 0.0),
        "prefix_devs": (0.0, 0.0)}
 DATASETS = ("uk_elec", "aus_elec")
@@ -200,10 +200,9 @@ def bound_ms(nbytes: float, flops: float, peak_flops: float):
                                        else "operations")
 
 
-def check_close(what: str, kname: str, got, want, tol=None) -> float:
-    """Hold ``got`` to ``want`` under ``tol`` (default ``TOL[kname]``);
-    max abs error."""
-    rtol, floor = TOL[kname] if tol is None else tol
+def check_close(what: str, kname: str, got, want) -> float:
+    """Hold ``got`` to ``want`` under ``TOL[kname]``; max abs error."""
+    rtol, floor = TOL[kname]
     err = torch.abs(got - want)
     scale = float(torch.max(torch.abs(want)))
     require(scale > 0, f"{what}: the plain version is all zeros")
@@ -246,18 +245,23 @@ def phase_kernels(device, name: str, length=None) -> list:
     shapes; one entry per kernel and shape (window_rows: its two tier
     launches of one full-size round together, then its boundary-heavy
     case)."""
-    cfg, n, nb, ny, y64, table, p0, dval = kernel_inputs(device, name,
-                                                         length)
-    L, kap, nyb = cfg.lags, cfg.kappa, y64.shape[0]
-    rng = np.random.default_rng(1)
-    ny_t = torch.full((), ny, dtype=torch.int32, device=device)
-    y32, t32, p32, d32 = y64.float(), table.float(), p0.float(), dval.float()
+    cfg, *_, y64, _, _, _ = kernel_inputs(device, name, length)
+    L, nyb = cfg.lags, y64.shape[0]
     out = []
 
-    # lag_dot: Eq. 7 sxx at init, float64 (the self form reads y once)
+    # lag_dot: Eq. 7 sxx at init, float64 (the self form reads y once),
+    # the same bits on a second call; and the cross and halo forms
     got = _lag_dot.lag_dot_cuda(y64, L=L)
     want = _lag_dot.lag_dot_plain(y64, L=L)
     err = check_close(f"{name} lag_dot", "lag_dot", got, want)
+    require(torch.equal(_lag_dot.lag_dot_cuda(y64, L=L), got),
+            f"{name} lag_dot: two calls gave different bits")
+    other = torch.flip(y64, (0,)).contiguous()
+    for form in ((other, None), (other, y64[:L])):
+        err = max(err, check_close(
+            f"{name} lag_dot ({'halo' if form[1] is not None else 'cross'})",
+            "lag_dot", _lag_dot.lag_dot_cuda(y64, *form, L=L),
+            _lag_dot.lag_dot_plain(y64, *form, L=L)))
     b_ext = _lag_dot.extended_operand(y64, L=L)
 
     def conv():
@@ -271,29 +275,10 @@ def phase_kernels(device, name: str, length=None) -> list:
         plain_ms=device_ms(lambda: _lag_dot.lag_dot_plain(y64, L=L), device),
         library_ms=device_ms(conv, device), bound_ms=bnd, bound_by=by))
 
-    # acf_impact: Eq. 8 impacts of every point, float32, runtime ny and the
-    # i // kappa map; every measure is held, mae (the default) is timed
-    err = 0.0
-    for measure in ("mae", "rmse", "cheb"):
-        kw = dict(L=L, measure=measure, ny=ny_t, kappa=kap)
-        got = _acf_impact.acf_impact_cuda(y32, d32, t32, p32, **kw)
-        want = _acf_impact.acf_impact_plain(y32, d32, t32, p32, **kw)
-        err = max(err, check_close(f"{name} acf_impact ({measure})",
-                                   "acf_impact", got, want))
-    kw = dict(L=L, measure="mae", ny=ny_t, kappa=kap)
-    # per (point, lag): 7 for the five moment updates, 12 for Eq. 2 with its
-    # sqrt and divide, 3 for the measure; per point 3 for e = d (2 y + d)
-    bnd, by = bound_ms((nyb + nb + 6 * L + nb) * 4, nb * (22.0 * L + 3),
-                       FP32_FLOPS)
-    out.append(dict(
-        name="acf_impact", shape=f"P={nb} nyb={nyb} kappa={kap} L={L} "
-                                 f"float32",
-        max_abs_err=err,
-        ms=device_ms(lambda: _acf_impact.acf_impact_cuda(
-            y32, d32, t32, p32, **kw), device),
-        plain_ms=device_ms(lambda: _acf_impact.acf_impact_plain(
-            y32, d32, t32, p32, **kw), device),
-        library_ms=None, bound_ms=bnd, bound_by=by))
+    # acf_impact: Eq. 8 impacts of every point, float32 (the rounds), and
+    # float64 (the sequential init)
+    acf_cases = acf_impact_cases(device, name, length)
+    out.append(acf_impact_entry(device, name, acf_cases[0]))
 
     # window_rows: Eq. 9 tier impacts at the full-size round's capacities
     # (tiers B and C together, as one round launches them), then a
@@ -312,11 +297,10 @@ def phase_kernels(device, name: str, length=None) -> list:
     out += tiers[2:]
     out += [window_impact_entry(device, c)
             for c in window_impact_cases(device, name, length)]
-    out += phase_kernels_f64(device, cfg, nb, ny, y64, table, p0, rng)
-    # prefix_devs on the arguments of the dataset's real lock-step scan round
-    cap = capture_round(device, name, length=length)
-    out.append(prefix_case(device, f"real round {cap['round']}",
-                           cap["args"][:7], cap["args"][7], L, mixed=False))
+    out.append(acf_impact_entry(device, name, acf_cases[1]))
+    out += [prefix_case(device, c["label"], c["args"], c["eps"], L,
+                        mixed=c["mixed"])
+            for c in prefix_cases(device, name, length)]
     for r in out:
         r["dataset"] = name
     return out
@@ -478,13 +462,18 @@ def window_impact_bound(P, W, L, item, peak):
                     P * (L * (4.0 * W + 22) + 5.0 * W), peak)
 
 
-def phase_kernels_f64(device, cfg, nb, ny, y64, table, p0, rng) -> list:
-    """The sequential mode's and the scan's float64 kernels at the main
-    paths' shapes: acf_impact at the sequential init and prefix_devs at
-    the scan's k_max (acf_window_impact: window_impact_cases)."""
+def acf_impact_cases(device, name: str, length=None) -> list:
+    """acf_impact's phase-3 cases at ``name``'s main-path shapes: the
+    rounds' float32 impacts of every point of the padded bucket (runtime
+    ny, the i // kappa map), then the sequential init's float64 impacts
+    over SEQ_LENGTHS points (random deltas).
+    Each holds its label, P, L, kappa, item size, the wrapper's arguments
+    and keywords (without the measure) and its bound."""
+    cfg, _, nb, ny, y64, table, p0, dval = kernel_inputs(device, name,
+                                                         length)
     L, kap, nyb = cfg.lags, cfg.kappa, y64.shape[0]
-    out = []
-    # acf_impact, float64: the sequential init over SEQ_LENGTHS points
+    rng = np.random.default_rng(1)
+    ny_t = torch.full((), ny, dtype=torch.int32, device=device)
     n_seq = SEQ_LENGTHS["uk_elec" if kap == 1 else "aus_elec"]
     y_s = y64[:n_seq // kap].contiguous()
     agg_s = extract_aggregates(y_s.cpu(), L, backend="reference")
@@ -492,29 +481,55 @@ def phase_kernels_f64(device, cfg, nb, ny, y64, table, p0, rng) -> list:
     p_s = acf_from_aggregates(t_s, y_s.shape[0])
     d_s = torch.from_numpy(rng.standard_normal(n_seq)
                            * float(torch.std(y_s)) * 0.05).to(device)
-    err = 0.0
-    for measure in ("mae", "rmse", "cheb"):
-        kw = dict(L=L, measure=measure, kappa=kap)
-        err = max(err, check_close(
-            f"acf_impact float64 ({measure})", "acf_impact",
-            _acf_impact.acf_impact_cuda(y_s, d_s, t_s, p_s, **kw),
-            _acf_impact.acf_impact_plain(y_s, d_s, t_s, p_s, **kw),
-            tol=TOL_F64))
-    kw = dict(L=L, measure="mae", kappa=kap)
-    bnd, by = bound_ms((y_s.shape[0] + 2 * n_seq + 6 * L) * 8,
-                       n_seq * (22.0 * L + 3), FP64_FLOPS)
-    out.append(dict(
-        name="acf_impact", shape=f"P={n_seq} ny={y_s.shape[0]} kappa={kap} "
-                                 f"L={L} float64 (sequential init)",
-        max_abs_err=err,
-        ms=device_ms(lambda: _acf_impact.acf_impact_cuda(
-            y_s, d_s, t_s, p_s, **kw), device),
-        plain_ms=device_ms(lambda: _acf_impact.acf_impact_plain(
-            y_s, d_s, t_s, p_s, **kw), device),
-        library_ms=None, bound_ms=bnd, bound_by=by))
+    # per (point, lag): 7 for the five moment updates, 12 for Eq. 2 with its
+    # sqrt and divide, 3 for the measure; per point 3 for e = d (2 y + d).
+    # Bytes: y, the deltas, table + p0, the output.
+    return [
+        dict(label="rounds", P=nb, L=L, kappa=kap, item=4,
+             shape=f"P={nb} nyb={nyb} kappa={kap} L={L} float32",
+             args=(y64.float(), dval.float(), table.float(), p0.float()),
+             kw=dict(L=L, ny=ny_t, kappa=kap),
+             bound=bound_ms((nyb + nb + 6 * L + nb) * 4, nb * (22.0 * L + 3),
+                            FP32_FLOPS)),
+        dict(label="sequential init", P=n_seq, L=L, kappa=kap, item=8,
+             shape=f"P={n_seq} ny={y_s.shape[0]} kappa={kap} L={L} float64 "
+                   f"(sequential init)",
+             args=(y_s, d_s, t_s, p_s), kw=dict(L=L, kappa=kap),
+             bound=bound_ms((y_s.shape[0] + 2 * n_seq + 6 * L) * 8,
+                            n_seq * (22.0 * L + 3), FP64_FLOPS))]
 
+
+def acf_impact_entry(device, name: str, c: dict) -> dict:
+    """acf_impact against its plain version on case ``c`` under every
+    measure (tolerance 0); one phase-3 entry, timed under mae."""
+    args, kw = c["args"], c["kw"]
+    err = 0.0
+    for measure in MEASURES:
+        err = max(err, check_close(
+            f"{name} acf_impact {c['label']} ({measure})", "acf_impact",
+            _acf_impact.acf_impact_cuda(*args, measure=measure, **kw),
+            _acf_impact.acf_impact_plain(*args, measure=measure, **kw)))
+    bnd, by = c["bound"]
+    return dict(
+        name="acf_impact", shape=c["shape"], max_abs_err=err,
+        ms=device_ms(lambda: _acf_impact.acf_impact_cuda(
+            *args, measure="mae", **kw), device),
+        plain_ms=device_ms(lambda: _acf_impact.acf_impact_plain(
+            *args, measure="mae", **kw), device),
+        library_ms=None, bound_ms=bnd, bound_by=by)
+
+
+def prefix_cases(device, name: str, length=None) -> list:
+    """prefix_devs' phase-3 cases at ``name``'s shapes, float64: a random
+    walk over the scan's k_max ranks (70% ok, eps at the middle of its
+    prefix curve, so the greedy walk both commits and skips), then the
+    arguments of the dataset's real lock-step scan round.  Each holds its
+    label, the wrapper's arguments (y, dyws, ystarts, ok, table, p0, ny),
+    eps and whether the greedy walk must skip too."""
+    cfg, _, nb, ny, y64, table, p0, _ = kernel_inputs(device, name, length)
+    L, kap = cfg.lags, cfg.kappa
+    rng = np.random.default_rng(4)
     scale = float(torch.std(y64[:ny])) * 0.05
-    # prefix_devs, float64: one scan round's walk over K = k_max ranks
     K = max(1, min(int(cfg.alpha * nb), nb - 2))
     Wy = cfg.window if kap == 1 else cfg.window // kap + 2
     starts = torch.from_numpy(
@@ -525,11 +540,11 @@ def phase_kernels_f64(device, cfg, nb, ny, y64, table, p0, rng) -> list:
     ny_t = torch.full((1,), ny, dtype=torch.int32, device=device)
     args = (y64, dyws, starts, ok, table, p0, ny_t)
     curve = _fused.prefix_devs_cuda(*args, L=L, measure="mae")
-    # eps at the middle of the prefix curve: the greedy walk then both
-    # commits and skips
     eps = torch.sort(curve).values[K // 2].reshape(1)
-    out.append(prefix_case(device, "random", args, eps, L))
-    return out
+    cap = capture_round(device, name, length=length)
+    return [dict(label="random", args=args, eps=eps, mixed=True),
+            dict(label=f"real round {cap['round']}", args=cap["args"][:7],
+                 eps=cap["args"][7], mixed=False)]
 
 
 def prefix_bound(K, n_ok, Wy, L, nyb):

@@ -126,7 +126,9 @@ acf_window_impact_kernel(const T* __restrict__ ctx_g,
       finish(l, a);
     }
   }
-  const T acc = win::reduce_lags(measure, L, sl, row);
+  win::lag_barrier(L);
+  const T acc = win::reduce_lags(measure, L, sl.active && sl.r == 0,
+                                   row);
   if (live && sl.r == 0) out[p] = rn::measure_final(measure, acc, L);
 }
 

@@ -22,7 +22,9 @@
 // one SM, not by the card's rate (PERF.md has the card's numbers).
 //
 // Design: one block walks the K ranks in chunks of kChunk, one thread per
-// lag (ceil(L / 32) warps; lane c of the block owns lag c).
+// lag (ceil(L / 32) warps; lane c of the block owns lag c + 1) up to
+// kMaxThreads; past that thread c also takes lags c + 1 + NT, c + 1 + 2 NT,
+// ... (NT = kMaxThreads threads).
 // - Skip.  A block-wide prefix count of ok over the chunk lists its ok
 //   ranks in shared memory; only those are walked.  dev_c, the deviation
 //   of the committed table (formed at the start with the same rounded
@@ -45,9 +47,13 @@
 //   acf_window_impact.cu) for each lag.  (Forming all L x Wy products
 //   across the block into shared memory, then one chain per lag from
 //   there, took longer on the card: PERF.md.)
-// - Decision.  Each thread keeps its lag's committed moments in registers,
-//   forms the trial moments and the Eq. 2 entry, and posts its lag's term
-//   of the measure in shared memory; after one barrier every thread
+// - Decision.  Each thread keeps its first lag's committed moments in
+//   registers, forms the trial moments and the Eq. 2 entry, and posts its
+//   lag's term of the measure in shared memory.  The moments of the lags
+//   past NT (L > kMaxThreads only) sit in a global scratch buffer,
+//   committed and trial side by side, and a commit swaps the two halves;
+//   shared memory stays for z, so no lag count outgrows it.  After one
+//   barrier every thread
 //   reduces the terms (cheb as a max, exact; NaN wins, as torch.amax; mae
 //   and rmse as one in-order chain, since bit-equality forbids a tree), so
 //   all hold the deviation and the decision.  A step costs two barriers,
@@ -65,7 +71,8 @@ namespace {
 
 constexpr int kChunk = 1024;   // ranks compacted at a time (fused_round.py)
 constexpr unsigned kFull = 0xffffffffu;
-constexpr int kMaxLags = 512;  // one thread per lag, <= 128 registers each
+constexpr int kMaxThreads = 512;  // one thread per lag up to here, <= 128
+                                  // registers each
 
 template <bool kWarp>
 __device__ __forceinline__ void block_sync() {
@@ -92,9 +99,11 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// kWarp: one warp (L <= 32); else blockDim.x = 32 ceil(L / 32) threads.
-template <typename T, bool kWarp, bool ZS>
-__global__ void __launch_bounds__(kWarp ? 32 : kMaxLags)
+// kWarp: one warp (L <= 32); else blockDim.x = 32 ceil(L / 32) threads, at
+// most kMaxThreads.  kMulti (L > kMaxThreads): the lags past the block's
+// first NT keep their moments in the global scratch after z.
+template <typename T, bool kWarp, bool ZS, bool kMulti>
+__global__ void __launch_bounds__(kWarp ? 32 : kMaxThreads)
 prefix_devs_kernel(const T* __restrict__ y, const T* __restrict__ dyws,
                    const int* __restrict__ ystarts,
                    const unsigned char* __restrict__ ok,
@@ -118,6 +127,11 @@ prefix_devs_kernel(const T* __restrict__ y, const T* __restrict__ dyws,
       reinterpret_cast<unsigned short*>(zs + (ZS ? zlen : 0));
   unsigned short* cnt = list + kChunk;     // [kChunk] ok ranks before each
   T* z = ZS ? zs : zg;
+  // kMulti: lag l > NT's moment q, committed in half cur and trial in half
+  // cur ^ 1, at mom[(half * 5 + q) * E + l - 1 - NT]
+  const int E = L - NT;
+  T* mom = zg + (ZS ? 0 : zlen);
+  int cur = 0;
   __shared__ int s_stage[2];               // staged starts, unclipped
   __shared__ int wtot[32];
   __shared__ T devc_start;
@@ -133,7 +147,25 @@ prefix_devs_kernel(const T* __restrict__ y, const T* __restrict__ dyws,
   T ag[5];
   for (int q = 0; q < 5; ++q) ag[q] = table[q * L + lw - 1];
   const T p0w = p0[lw - 1];
+  if constexpr (kMulti)
+    for (int x = tid; x < E; x += NT)
+      for (int q = 0; q < 5; ++q) mom[q * E + x] = table[q * L + NT + x];
   block_sync<kWarp>();
+
+  // a lag l > NT of this thread: its trial moments from its window sums a
+  // (into the other half of mom) and its term of the measure
+  auto post_extra = [&](int l, const T* a) {
+    const int x = l - 1 - NT;
+    T t[5];
+    for (int q = 0; q < 5; ++q) {
+      t[q] = rn::add(mom[(cur * 5 + q) * E + x], a[q]);
+      mom[((cur ^ 1) * 5 + q) * E + x] = t[q];
+    }
+    const T df = rn::sub(rn::acf_rho(t[0], t[1], t[2], t[3], t[4],
+                                     static_cast<T>(ny - l)),
+                         p0[l - 1]);
+    vals[l - 1] = measure == 1 ? rn::mul(df, df) : fabs(df);
+  };
 
   // the trial moments t of this thread's lag from its window sums a, and
   // the deviation, which every thread reduces over the lags' terms in order
@@ -162,6 +194,8 @@ prefix_devs_kernel(const T* __restrict__ y, const T* __restrict__ dyws,
   T dev_c;   // the committed table's deviation
   {
     const T a[5] = {0, 0, 0, 0, 0};
+    if constexpr (kMulti)
+      for (int l = lw + NT; l <= L; l += NT) post_extra(l, a);
     T t[5];
     dev_c = deviation(a, t);
   }
@@ -238,11 +272,29 @@ prefix_devs_kernel(const T* __restrict__ y, const T* __restrict__ dyws,
         a[0] = a[1] = sd;
         a[2] = a[3] = se;
         a[4] = s4;
+        if constexpr (kMulti)
+          for (int l = lw + NT; l <= L; l += NT) {
+            // lag l's products, chained as this lag's are
+            auto prod = [&](int j) -> T {
+              const T df = j + l < Wy ? d[j + l] : static_cast<T>(0);
+              return rn::mul(d[j], rn::add(rn::add(zc[j + l], zc[j - l]),
+                                           df));
+            };
+            T ax[5] = {sd, sd, se, se, prod(0)};
+            for (int j = 1; j < Wy; ++j) ax[4] = rn::add(ax[4], prod(j));
+            post_extra(l, ax);
+          }
       } else {
         for (int j = tid; j < Wy; j += NT)
           e[j] = rn::mul(d[j], rn::add(static_cast<T>(2) * zc[j], d[j]));
         block_sync<kWarp>();
         rn::window_sums(zc, d, e, Wy, s, lw, ny, a);
+        if constexpr (kMulti)
+          for (int l = lw + NT; l <= L; l += NT) {
+            T ax[5];
+            rn::window_sums(zc, d, e, Wy, s, l, ny, ax);
+            post_extra(l, ax);
+          }
       }
       T t[5];
       const T dev = deviation(a, t);
@@ -250,6 +302,7 @@ prefix_devs_kernel(const T* __restrict__ y, const T* __restrict__ dyws,
       if (take) {
         dev_c = dev;
         for (int q = 0; q < 5; ++q) ag[q] = t[q];
+        if constexpr (kMulti) cur ^= 1;
       }
       if (tid == 0) {
         out[base + list[i]] = dev;
@@ -270,13 +323,13 @@ prefix_devs_kernel(const T* __restrict__ y, const T* __restrict__ dyws,
   }
 }
 
-template <typename T, bool kWarp, bool ZS>
+template <typename T, bool kWarp, bool ZS, bool kMulti>
 int launch_block(const void* y, const void* dyws, const void* ystarts,
                  const void* ok, const void* table, const void* p0,
                  const void* ny, const void* eps, void* out, void* scratch,
                  int K, int Wy, int nyb, int L, int measure, int greedy,
                  int threads, size_t smem, void* stream) {
-  auto kernel = prefix_devs_kernel<T, kWarp, ZS>;
+  auto kernel = prefix_devs_kernel<T, kWarp, ZS, kMulti>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -294,32 +347,37 @@ int launch_block(const void* y, const void* dyws, const void* ystarts,
 }
 
 // The wrapper (fused_round.prefix_devs_cuda) decides use_smem from the same
-// layout; L is at most kMaxLags.
+// layout and sizes scratch: z where use_smem is 0, then 10 (L - kMaxThreads)
+// moments where L > kMaxThreads.
 template <typename T>
 int launch(const void* y, const void* dyws, const void* ystarts,
            const void* ok, const void* table, const void* p0, const void* ny,
            const void* eps, void* out, void* scratch, int K, int Wy, int nyb,
            int L, int measure, int greedy, int use_smem, void* stream) {
-  if (L < 1 || L > kMaxLags) return static_cast<int>(cudaErrorInvalidValue);
-  const int threads = 32 * ((L + 31) / 32);
+  if (L < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const int threads = min(32 * ((L + 31) / 32), kMaxThreads);
   size_t smem = (L + 3 * Wy + kChunk) * sizeof(T) +
                 2 * kChunk * sizeof(unsigned short);
   if (use_smem) smem += (nyb + 2 * L + Wy) * sizeof(T);
-#define PREFIX_DEVS_LAUNCH(W, Z)                                           \
-  launch_block<T, W, Z>(y, dyws, ystarts, ok, table, p0, ny, eps, out,     \
-                        scratch, K, Wy, nyb, L, measure, greedy, threads, \
-                        smem, stream)
+#define PREFIX_DEVS_LAUNCH(W, Z, X)                                          \
+  launch_block<T, W, Z, X>(y, dyws, ystarts, ok, table, p0, ny, eps, out,   \
+                           scratch, K, Wy, nyb, L, measure, greedy, threads, \
+                           smem, stream)
   if (threads == 32)
-    return use_smem ? PREFIX_DEVS_LAUNCH(true, true)
-                    : PREFIX_DEVS_LAUNCH(true, false);
-  return use_smem ? PREFIX_DEVS_LAUNCH(false, true)
-                  : PREFIX_DEVS_LAUNCH(false, false);
+    return use_smem ? PREFIX_DEVS_LAUNCH(true, true, false)
+                    : PREFIX_DEVS_LAUNCH(true, false, false);
+  if (L > kMaxThreads)
+    return use_smem ? PREFIX_DEVS_LAUNCH(false, true, true)
+                    : PREFIX_DEVS_LAUNCH(false, false, true);
+  return use_smem ? PREFIX_DEVS_LAUNCH(false, true, false)
+                  : PREFIX_DEVS_LAUNCH(false, false, false);
 #undef PREFIX_DEVS_LAUNCH
 }
 
 }  // namespace
 
-// out is [K] trial deviations; scratch holds z when use_smem is 0.
+// out is [K] trial deviations; scratch holds z when use_smem is 0, then the
+// moments of the lags past kMaxThreads.
 extern "C" int prefix_devs_f32(const void* y, const void* dyws,
                                const void* ystarts, const void* ok,
                                const void* table, const void* p0,

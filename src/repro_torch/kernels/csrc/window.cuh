@@ -1,6 +1,7 @@
 // What the two Eq. 9 window kernels (acf_window_impact.cu, window_rows.cu)
 // share: candidate packing, the staging pass, the window sums and the
-// in-order lag reduction.
+// in-order lag reduction; acf_impact.cu (Eq. 8) packs its candidates and
+// reduces their lags the same way.
 //
 // A candidate's lags run one to a thread, G consecutive threads per
 // candidate (lane r takes lag r + 1, and r + 1 + G, ... when G < L):
@@ -153,17 +154,16 @@ __device__ __forceinline__ void stage(int r, int G, int C, int L, int W,
   for (int j = W + r; j < W + L; j += G) d[j] = static_cast<T>(0);
 }
 
-// The candidate's lag terms reduced in lag order from 0, as
+// A candidate's lag terms reduced in lag order from 0, as
 // rn::measure_step does (step: max for cheb, add for mae and rmse): lag
-// l's term is in row[l - 1].  After one barrier (__syncwarp at L <= 32)
-// lane r == 0 loads kU terms at a time ahead of the chained steps.  Every
-// thread of the block calls this; lane r == 0 holds the result.
+// l's term is in row[l - 1], after the caller's barrier.  The reducing
+// thread (me) loads kU terms at a time ahead of the chained steps and
+// holds the result; every other thread returns 0.
 template <typename T, typename Step>
-__device__ __forceinline__ T reduce_with(Step step, int L, const Slot& s,
+__device__ __forceinline__ T reduce_with(Step step, int L, bool me,
                                          const T* row) {
-  if (L <= 32) __syncwarp(); else __syncthreads();
   T acc = 0;
-  if (s.active && s.r == 0) {
+  if (me) {
     T v[kU];
 #pragma unroll
     for (int k = 0; k < kU; ++k) v[k] = k < L ? row[k] : static_cast<T>(0);
@@ -183,11 +183,16 @@ __device__ __forceinline__ T reduce_with(Step step, int L, const Slot& s,
 }
 
 template <typename T>
-__device__ __forceinline__ T reduce_lags(int measure, int L, const Slot& s,
+__device__ __forceinline__ T reduce_lags(int measure, int L, bool me,
                                          const T* row) {
   if (measure == 2)
-    return reduce_with([](T a, T t) { return a > t ? a : t; }, L, s, row);
-  return reduce_with([](T a, T t) { return rn::add(a, t); }, L, s, row);
+    return reduce_with([](T a, T t) { return a > t ? a : t; }, L, me, row);
+  return reduce_with([](T a, T t) { return rn::add(a, t); }, L, me, row);
+}
+
+// The barrier before a candidate's first lane reduces its own terms.
+__device__ __forceinline__ void lag_barrier(int L) {
+  if (L <= 32) __syncwarp(); else __syncthreads();
 }
 
 // Launch shape for P candidates of cand_bytes shared memory each.
@@ -196,14 +201,24 @@ struct Plan {
   size_t smem;
 };
 
-inline cudaError_t plan(int P, int L, size_t cand_bytes, Plan* p) {
-  // the current device's SM count, asked at every launch (a host lookup)
-  int dev = 0, n_sm = 0;
+// The current device's SM count, asked at every launch (a host lookup).
+inline cudaError_t sm_count(int* n_sm) {
+  int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, dev);
+    err = cudaDeviceGetAttribute(n_sm, cudaDevAttrMultiProcessorCount, dev);
+  return err;
+}
+
+// L is the lanes a candidate takes (its lag count in the window kernels);
+// a block's shared memory is fixed_bytes plus cand_bytes a candidate.
+inline cudaError_t plan(int P, int L, size_t cand_bytes, Plan* p,
+                        size_t fixed_bytes = 0) {
+  int n_sm = 0;
+  cudaError_t err = sm_count(&n_sm);
   if (err != cudaSuccess) return err;
-  const int fit = static_cast<int>(kSmemLimit / cand_bytes);
+  if (fixed_bytes >= kSmemLimit) return cudaErrorInvalidValue;
+  const int fit = static_cast<int>((kSmemLimit - fixed_bytes) / cand_bytes);
   if (fit < 1) return cudaErrorInvalidValue;
   int U, most;
   if (L <= 32) {
@@ -227,7 +242,7 @@ inline cudaError_t plan(int P, int L, size_t cand_bytes, Plan* p) {
   p->M = (65536 + D - 1) / D;
   p->blocks = (P + cpb - 1) / cpb;
   p->threads = units * U;
-  p->smem = static_cast<size_t>(cpb) * cand_bytes;
+  p->smem = fixed_bytes + static_cast<size_t>(cpb) * cand_bytes;
   return cudaSuccess;
 }
 

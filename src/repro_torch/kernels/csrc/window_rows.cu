@@ -133,7 +133,9 @@ window_rows_kernel(const float* __restrict__ dyws,
       row[l - 1] = t;
     }
   }
-  const float acc = win::reduce_lags(measure, L, sl, row);
+  win::lag_barrier(L);
+  const float acc = win::reduce_lags(measure, L, sl.active && sl.r == 0,
+                                       row);
   if (live && sl.r == 0) out[k] = rn::measure_final(measure, acc, L);
 }
 

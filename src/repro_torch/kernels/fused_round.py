@@ -293,10 +293,11 @@ _PREFIX_SYMBOL = {torch.float32: "prefix_devs_f32",
 # dynamic shared memory a block may use on the H100 (227 KB, less a margin
 # for the kernel's static shared variables)
 _SMEM_LIMIT = 232448 - 1024
-# ranks the kernel compacts at a time and the most lags it takes (one
-# thread each): kChunk and kMaxLags in csrc/prefix_devs.cu
+# ranks the kernel compacts at a time and its most threads (one a lag; the
+# lags past them keep their moments in scratch): kChunk and kMaxThreads in
+# csrc/prefix_devs.cu
 _PREFIX_CHUNK = 1024
-_PREFIX_MAX_LAGS = 512
+_PREFIX_THREADS = 512
 
 
 def prefix_devs_layout(Wy, nyb, L, item):
@@ -322,7 +323,9 @@ def prefix_devs_cuda(y, dyws, ystarts, ok, agg_table, p0, ny, eps=None, *,
     needs no host sync.  The kernel walks only the ``ok`` ranks (the others
     get the committed deviation) and keeps ``z`` in shared memory while it
     fits the block's 227 KB, else in a global scratch buffer on the same
-    code path (:func:`prefix_devs_layout`).
+    code path (:func:`prefix_devs_layout`).  Past 512 lags a thread takes
+    several, and the moments of the lags past the first 512 sit in that
+    scratch buffer too.
     """
     if y.device.type != "cuda":
         return prefix_devs_plain(y, dyws, ystarts, ok, agg_table, p0, ny, eps,
@@ -355,12 +358,10 @@ def prefix_devs_cuda(y, dyws, ystarts, ok, agg_table, p0, ny, eps=None, *,
     out = torch.empty((K,), dtype=dt, device=dev)
     if K == 0:
         return out
-    if L > _PREFIX_MAX_LAGS:
-        raise ValueError(f"prefix_devs: the kernel takes at most "
-                         f"{_PREFIX_MAX_LAGS} lags, got L={L}")
     use_smem = prefix_devs_layout(Wy, nyb, L, y.element_size())
-    scratch = torch.empty((1 if use_smem else nyb + 2 * L + Wy,), dtype=dt,
-                          device=dev)
+    n_scratch = (0 if use_smem else nyb + 2 * L + Wy) \
+        + 10 * max(L - _PREFIX_THREADS, 0)
+    scratch = torch.empty((max(n_scratch, 1),), dtype=dt, device=dev)
     fn = _build.bind("prefix_devs", _PREFIX_SYMBOL[dt], 10, 7)
     _build.check(fn(y.data_ptr(), dyws.data_ptr(), ystarts.data_ptr(),
                     ok.data_ptr(), agg_table.data_ptr(), p0.data_ptr(),

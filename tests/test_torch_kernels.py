@@ -1,14 +1,18 @@
 """The port's kernels: each plain PyTorch version against the JAX package's
-Pallas kernel in interpret mode (CPU), the backend dispatch, and — on a
-card only — each CUDA kernel against its plain version at the main path's
-shapes.
+Pallas kernel in interpret mode (CPU), the backend dispatch, Python models
+of the acf_impact and lag_dot kernels' schedules (``csrc/acf_impact.cu``:
+lanes, placement and the in-order reduction; ``csrc/lag_dot.cu``: tiles,
+lanes, the shuffle tree and the blocks in order), and — on a card only —
+each CUDA kernel against its plain version at the main path's shapes.
 
 Tolerances: lag_dot float64 1e-10 and float32 2e-4, both scaled by
 max|out| as in ``tests/test_kernels.py``; window_rows and acf_impact
-float32 1e-4 against the Pallas kernels (float32 sums in other orders).  On
-the card a float32 kernel is held to its plain version at rtol 1e-4 with
-an absolute floor of 1e-6 x max|plain|, so an output of the wrong scale
-fails at any input size.
+float32 1e-4 against the Pallas kernels (float32 sums in other orders),
+float64 1e-10.  The acf_impact schedule equals its plain version exactly
+(tolerance 0), and so does the kernel on the card; window_rows on the card
+is held at rtol 1e-4 with an absolute floor of 1e-6 x max|plain|, so an
+output of the wrong scale fails at any input size (its exact checks are in
+``tests/test_torch_window_kernels.py``).
 """
 import os
 import subprocess
@@ -20,6 +24,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro.core.acf import acf_from_aggregates, extract_aggregates
 from repro.kernels import fused_round as j_fused
@@ -31,7 +36,9 @@ from repro_torch.core import acf as t_acf
 from repro_torch.core import cameo as t_cameo
 from repro_torch.kernels import fused_round as t_fused
 from repro_torch.kernels import ops as t_ops
+from repro_torch.kernels import ref as t_ref
 from repro_torch.kernels.acf_impact import acf_impact_cuda, acf_impact_plain
+from repro_torch.kernels.lag_dot import extended_operand as lag_dot_ext
 from repro_torch.kernels.lag_dot import lag_dot_cuda, lag_dot_plain
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -39,6 +46,18 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def T(a):
     return torch.from_numpy(np.array(a))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Torch on one intra-op thread, as the other port test files run it:
+    these shapes gain nothing from more, and under pytest-xdist a worker's
+    first multi-threaded computation has given one thread's chunk of
+    ``acf_impact_plain`` wrong values (ROADMAP C6)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 @pytest.fixture
@@ -203,6 +222,182 @@ def test_acf_impact_runtime_ny_kappa(measure):
 
 
 # ---------------------------------------------------------------------------
+# the kernels' schedules, modelled on the CPU
+# ---------------------------------------------------------------------------
+
+N_SM = 132                      # the H100's SMs (win::plan asks the card)
+K_BLOCK, K_SMEM = 256, 232448   # win::kBlock, win::kSmemLimit
+
+
+def _win_plan(P, lanes, cand_bytes, n_sm, fixed_bytes=0):
+    """``win::plan`` (csrc/window.cuh) for P candidates of ``lanes`` lanes
+    and ``cand_bytes`` of shared memory each, beside ``fixed_bytes``."""
+    fit = (K_SMEM - fixed_bytes) // cand_bytes
+    if lanes <= 32:
+        G, cpu, U = lanes, min(32 // lanes, fit), 32
+        most = min(fit // cpu, K_BLOCK // 32)
+    else:
+        G = 32 * min(-(-lanes // 32), K_BLOCK // 32)
+        cpu, U = 1, G
+        most = min(fit, K_BLOCK // U)
+    units = max(1, min(most, -(-P // (cpu * n_sm))))
+    D = G if lanes <= 32 else G // 32
+    return dict(G=G, cpu=cpu, cpb=units * cpu, M=-(-65536 // D),
+                blocks=-(-P // (units * cpu)), threads=units * U)
+
+
+def _win_slot(tid, lanes, G, cpu, M):
+    """``win::slot``: (candidate in the block, lane, active)."""
+    w, lane = tid >> 5, tid & 31
+    if lanes <= 32:
+        q = (lane * M) >> 16
+        return w * cpu + q, lane - q * G, q < cpu
+    q = (w * M) >> 16
+    return q, tid - q * G, True
+
+
+def _acf_impact_schedule(y, dval, table, p0, *, L, measure, ny, kappa,
+                         n_sm):
+    """``csrc/acf_impact.cu``'s schedule on a card of ``n_sm`` SMs holding
+    2,048 threads each at once: the launch's lanes a candidate (one a lag
+    where that fits the card at once, else the most, a power of two with
+    at least two lags a lane, that fit), the placement of win::plan and
+    win::slot, yi = p / kappa by the multiply and shift, every (candidate,
+    lag) term formed once by its lane with the plain version's elementwise
+    arithmetic, then each candidate's terms taken in lag order from 0 (by
+    its own thread at one lane a candidate, else by thread c of its block).
+    Returns the impacts and the lanes a candidate."""
+    P = dval.shape[0]
+    fill = 2048 * n_sm
+    per_lag = 32 // (32 // L) if L <= 32 else 32 * min(-(-L // 32), 8)
+    lanes = L
+    if P * per_lag > fill:
+        lanes = 1
+        while 4 * lanes <= L and P * lanes * 2 <= fill:
+            lanes *= 2
+    item = dval.element_size()
+    row = 0 if lanes == 1 else (L | 1)
+    pl = _win_plan(P, lanes, (row + 1) * item, n_sm, (8 * L + 2) * item)
+    kshift = 31 + max(kappa - 1, 0).bit_length()
+    kmul = (1 << kshift) // kappa + 1
+    owner = np.full((P, L), -1)
+    for b in range(pl["blocks"]):
+        for tid in range(pl["threads"]):
+            cand, r, active = _win_slot(tid, lanes, pl["G"], pl["cpu"],
+                                        pl["M"])
+            p = b * pl["cpb"] + cand
+            if not active or p >= P:
+                continue
+            assert (p * kmul) >> kshift == p // kappa
+            lags = np.arange(r + 1, L + 1, pl["G"]) - 1
+            assert (owner[p, lags] == -1).all()
+            owner[p, lags] = b * K_BLOCK + tid
+        # the reducers: thread c < cpb of the block takes candidate c (at
+        # one lane a candidate, that is the candidate's own thread)
+        assert pl["cpb"] <= pl["threads"]
+    assert (owner >= 0).all()
+    idx = torch.arange(P, dtype=torch.int32) // kappa
+    rows = t_ref.acf_after_single_delta(table, y, idx, dval, ny=ny)
+    diff = rows - p0[None, :]
+    terms = diff * diff if measure == "rmse" else torch.abs(diff)
+    acc = torch.zeros(P, dtype=dval.dtype)
+    for lag in range(L):
+        t = terms[:, lag]
+        acc = torch.where(acc > t, acc, t) if measure == "cheb" else acc + t
+    if measure != "cheb":
+        acc = t_ref.div_exact(acc, L)
+        acc = torch.sqrt(acc) if measure == "rmse" else acc
+    return acc, lanes
+
+
+@pytest.mark.parametrize("n_sm,regime", [(N_SM, "lag"), (8, "split"),
+                                          (1, "solo")])
+@pytest.mark.parametrize("L", [7, 40])
+@pytest.mark.parametrize("kappa", [1, 48])
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+def test_acf_impact_schedule_exact(dtype, kappa, L, n_sm, regime):
+    """The kernel's schedule equals the plain version bit for bit in its
+    three regimes: one lane a lag (the H100's 132 SMs at these small P), a
+    power of two lanes with several lags each (an 8-SM card) and one lane a
+    candidate (a one-SM card: P fills it), under mae, rmse and cheb; and
+    holds against JAX: the Pallas kernel in interpret mode at kappa = 1 (no
+    padding), single_impacts' jnp form at kappa = 48 (a zero-padded
+    bucket, runtime ny)."""
+    nyb = 1100 if kappa == 1 else L + 20
+    ny = nyb if kappa == 1 else nyb - 4
+    y, rng = _series(nyb, dtype, seed=L + kappa)
+    y[ny:] = 0
+    table, p0 = _tables(y, L, ny)
+    P = nyb * kappa
+    dval = (0.05 * rng.standard_normal(P)).astype(dtype)
+    ny_t = torch.tensor(ny, dtype=torch.int32)
+    args = (T(y), T(dval), T(table), T(p0))
+    tol = 1e-4 if dtype == np.float32 else 1e-10
+    for measure in ("mae", "rmse", "cheb"):
+        kw = dict(L=L, measure=measure, ny=ny_t, kappa=kappa)
+        want = acf_impact_plain(*args, **kw)
+        got, lanes = _acf_impact_schedule(*args, n_sm=n_sm, **kw)
+        assert {"lag": lanes == L, "solo": lanes == 1,
+                "split": 1 <= lanes <= L}[regime]
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        if kappa == 1:
+            ref = np.asarray(acf_impact_pallas(
+                jnp.asarray(y), jnp.asarray(dval), jnp.asarray(table),
+                jnp.asarray(p0), L=L, measure=measure, block=256,
+                interpret=True))
+        else:
+            idx = jnp.arange(P, dtype=jnp.int32) // kappa
+            ref = np.asarray(j_ref.measure_rows(
+                j_ref.acf_after_single_delta(
+                    jnp.asarray(table), jnp.asarray(y), idx,
+                    jnp.asarray(dval), ny=jnp.asarray(ny, jnp.int32)),
+                jnp.asarray(p0), measure))
+        np.testing.assert_allclose(got.numpy(), ref, rtol=tol, atol=tol)
+
+
+def _lag_dot_schedule(a, b_ext, L, tile=512):
+    """``csrc/lag_dot.cu``'s order: per tile of ``tile`` points and lag,
+    lane j (of 32) sums a[t] b_ext[t + l] over t = t0 + j, t0 + j + 32, ...
+    in order, the shuffle tree halves the lanes into lane 0 (offsets 16, 8,
+    4, 2, 1), then the blocks' partials are summed in block order."""
+    n = a.shape[0]
+    out = torch.zeros(L, dtype=a.dtype)
+    for t0 in range(0, n, tile):
+        cnt = min(tile, n - t0)
+        part = torch.zeros(L, dtype=a.dtype)
+        for lag in range(1, L + 1):
+            prod = a[t0:t0 + cnt] * b_ext[t0 + lag:t0 + lag + cnt]
+            rows = F.pad(prod, (0, (-cnt) % 32)).view(-1, 32)
+            lanes = torch.zeros(32, dtype=a.dtype)
+            for row in rows:
+                lanes = lanes + row
+            for off in (16, 8, 4, 2, 1):
+                lanes = torch.cat([lanes[:off] + lanes[off:2 * off],
+                                   lanes[off:]])
+            part[lag - 1] = lanes[0]
+        out = out + part
+    return out
+
+
+@pytest.mark.parametrize("form", ["self", "cross", "halo"])
+@pytest.mark.parametrize("n", [300, 512, 1500])
+def test_lag_dot_schedule_matches_plain(n, form):
+    """The one-launch kernel's order (n below, at and above one tile)
+    within 1e-10 x max|out| of the plain version (a matmul, in another
+    order), for the self, cross (b=) and halo (halo=) forms."""
+    L = 24
+    rng = np.random.default_rng(n)
+    a = T(rng.standard_normal(n))
+    b = T(rng.standard_normal(n)) if form != "self" else None
+    halo = T(rng.standard_normal(L + 3)) if form == "halo" else None
+    b_ext = lag_dot_ext(a, b, halo, L=L)
+    want = lag_dot_plain(a, b, halo, L=L)
+    got = _lag_dot_schedule(a, b_ext, L)
+    scale = float(torch.max(torch.abs(want)))
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-10 * scale)
+
+
+# ---------------------------------------------------------------------------
 # dispatch
 # ---------------------------------------------------------------------------
 
@@ -305,6 +500,24 @@ def _uk_inputs(device, L=48, n=17520, nb=18432):
 
 
 @pytest.mark.gpu
+def test_gpu_lag_dot_one_launch_same_bits(cuda):
+    """One call is one launch of the kernel (torch.profiler sees one device
+    kernel, after a first call has made the scratch), and two calls give
+    the same bits."""
+    from torch.profiler import ProfilerActivity, profile
+    _, y64, *_ = _uk_inputs(cuda)
+    first = lag_dot_cuda(y64, L=48)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        second = lag_dot_cuda(y64, L=48)
+        torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "lag_dot_kernel" in kernels[0], kernels
+
+
+@pytest.mark.gpu
 def test_gpu_lag_dot(cuda):
     _, y64, *_ = _uk_inputs(cuda)
     got = lag_dot_cuda(y64, L=48)
@@ -336,8 +549,35 @@ def test_gpu_acf_impact(cuda, kappa, measure):
     dval = T(rng.standard_normal(P) * 200.0).float().to(cuda)
     args = (y64.float(), dval, table.float(), p0.float())
     kw = dict(L=48, measure=measure, ny=ny, kappa=kappa)
-    _assert_kernel_close(acf_impact_cuda(*args, **kw),
-                         acf_impact_plain(*args, **kw))
+    torch.testing.assert_close(acf_impact_cuda(*args, **kw),
+                               acf_impact_plain(*args, **kw), rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kappa", [1, 48])
+@pytest.mark.parametrize("L", [7, 32, 33, 48, 257, 365])
+def test_gpu_acf_impact_lags(cuda, L, kappa, dtype):
+    """Bit for bit equal to the plain version under every measure, with the
+    lags spread over lanes (P = 500 or 3,072: up to 256 lanes a candidate,
+    several lags a lane past 256) and one lane a candidate (kappa = 48: P =
+    147,456 fills the card), on a zero-padded bucket with runtime ny."""
+    nyb, ny = 3072, 3000
+    rng = np.random.default_rng(L + kappa)
+    x = np.zeros(nyb)
+    x[:ny] = np.sin(2 * np.pi * np.arange(ny) / 24) \
+        + 0.2 * rng.standard_normal(ny)
+    table, p0 = _tables(x, L, ny)
+    y = T(x).to(cuda, dtype)
+    args = [T(table).to(cuda, dtype), T(p0).to(cuda, dtype)]
+    ny_t = torch.tensor(ny, dtype=torch.int32, device=cuda)
+    for P in (500, nyb * kappa):
+        dval = T(rng.standard_normal(P) * 0.05).to(cuda, dtype)
+        for measure in ("mae", "rmse", "cheb"):
+            kw = dict(L=L, measure=measure, ny=ny_t, kappa=kappa)
+            torch.testing.assert_close(
+                acf_impact_cuda(y, dval, *args, **kw),
+                acf_impact_plain(y, dval, *args, **kw), rtol=0, atol=0)
 
 
 @pytest.mark.gpu

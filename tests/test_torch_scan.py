@@ -626,6 +626,46 @@ def test_gpu_prefix_devs(cuda, nyb, ny, form, dtype):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("nyb,ny", [(3000, 2900), (60000, 59000)])
+@pytest.mark.parametrize("L", [513, 1024])
+def test_gpu_prefix_devs_many_lags(cuda, L, nyb, ny):
+    """Past 512 lags (a thread takes two, the moments of lags 513.. sit in
+    global scratch): bit for bit equal to the plain version, greedy and
+    not, under every measure, with z in shared memory (nyb = 3,000) and in
+    global scratch (nyb = 60,000), on interior, boundary, clipped and
+    overlapping windows."""
+    y, dyws, starts, ok, table, p0 = _walk_corpus(
+        L, "mixed", nyb=nyb, ny=ny, K=60, Wy=12, L=L)
+    args = [T(a).to(cuda) for a in (y, dyws, starts, ok, table, p0)]
+    args.append(torch.tensor([ny], dtype=torch.int32, device=cuda))
+    curve = t_fused.prefix_devs_plain(*args, L=L)
+    args.append(torch.sort(curve).values[30].reshape(1))
+    for greedy in (False, True):
+        for measure in ("mae", "rmse", "cheb"):
+            kw = dict(L=L, measure=measure, greedy=greedy)
+            torch.testing.assert_close(
+                t_fused.prefix_devs_cuda(*args, **kw),
+                t_fused.prefix_devs_plain(*args, **kw), rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+def test_gpu_scan_past_512_lags(cuda):
+    """compress(select="scan") at L = 513 on the card: the greedy branch
+    walks through the prefix_devs kernel, and the guarantee holds."""
+    x = _series(4096, seed=3)
+    cfg = tc.CameoConfig(eps=0.02, lags=513, select="scan")
+    before = t_fused.prefix_devs_cuda.launches
+    res = tc.compress(x, cfg, device=cuda)
+    assert t_fused.prefix_devs_cuda.launches > before
+    import chip_smoke
+    dev = float(res.deviation)
+    assert dev <= cfg.eps + 1e-12
+    assert abs(chip_smoke.remeasure(x, res.xr.cpu().numpy(), cfg) - dev) \
+        <= 1e-9
+    assert int(res.n_kept) < x.shape[0]
+
+
+@pytest.mark.gpu
 def test_gpu_scan_greedy_lockstep(cuda):
     """One scan round's greedy decisions on the card: kernel and plain
     version take the same candidates."""

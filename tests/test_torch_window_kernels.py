@@ -16,7 +16,8 @@ through Python models of their schedules, one rounded operation at a time:
 (c) the plain versions on those starts against the Pallas kernels in
     interpret mode;
 plus, on a card only, both kernels against their plain versions at
-tolerance 0, at L = 7, 32, 33 and 48 (warp packing and the warp split).
+tolerance 0, at L = 7, 32, 33 and 48 (warp packing and the warp split) and
+257 and 365 (past 256 lags a lane takes two; min_temp's L = 365).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -38,6 +39,18 @@ MEASURES = ("mae", "rmse", "cheb")
 
 def T(a):
     return torch.from_numpy(np.array(a))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """Torch on one intra-op thread, as the other port test files run it:
+    these shapes gain nothing from more, and under pytest-xdist a worker's
+    first multi-threaded computation has given one thread's chunk of
+    ``acf_impact_plain`` wrong values (ROADMAP C6)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def _setup(ny, L, seed, nyb=None):
@@ -300,7 +313,7 @@ def cuda():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("L", [7, 32, 33, 48])
+@pytest.mark.parametrize("L", [7, 32, 33, 48, 257, 365])
 @pytest.mark.parametrize("W,P", [(3, 1000), (64, 50), (64, 700)])
 def test_gpu_acf_window_impact_exact(cuda, L, W, P):
     ny = 3000
@@ -320,7 +333,7 @@ def test_gpu_acf_window_impact_exact(cuda, L, W, P):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("L", [7, 32, 33, 48])
+@pytest.mark.parametrize("L", [7, 32, 33, 48, 257, 365])
 @pytest.mark.parametrize("Wy,K", [(2, 10240), (3, 700), (64, 384)])
 def test_gpu_window_rows_exact(cuda, L, Wy, K):
     ny, nyb = 3000, 3072

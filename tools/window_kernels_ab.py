@@ -1,34 +1,39 @@
 #!/usr/bin/env python3
-"""The Eq. 9 window kernels of this tree against those of another tree,
-on one card, in one process.
+"""The port's kernels in this tree against those of another tree, on one
+card, in one process.
 
     python3 tools/window_kernels_ab.py --parent DIR [--variant NAME=DIR ...]
-                                       [--no-real]
+                                       [--kernels NAME,...] [--no-real]
 
 DIR holds a checkout of the other commit (for example the parent:
 ``git archive <commit> | tar -x -C DIR``).  Its
-``src/repro_torch/kernels/csrc/acf_window_impact.cu`` and
-``window_rows.cu`` are built with the same nvcc flags into
-``build/ab_<name>/``; this tree's are built as the port builds them;
-each ``--variant`` is one more tree, built the same way.
+``src/repro_torch/kernels/csrc/`` sources of the kernels in ``STEMS`` are
+built with the same nvcc flags into ``build/ab_<name>/``, and its kernel
+wrappers (``kernels/*.py``) are loaded beside this tree's, so a kernel
+whose C interface changed is still called as its own tree calls it; this
+tree's kernels are built as the port builds them; each ``--variant`` is one
+more tree, built the same way.  ``--kernels`` keeps a subset of STEMS.
 
-1. On each of ``chip_smoke.py``'s phase-3 cases of the two kernels (both
-   datasets, the boundary-heavy cases too) every build is held against
-   the plain version at tolerance 0 under mae, rmse and cheb, then timed
-   under mae with CUDA events in turns (parent, this tree, the variants,
-   then the same in reverse; each turn ``chip_smoke.device_ms``).
+1. On each of ``chip_smoke.py``'s phase-3 cases of the kernels (both
+   datasets; the window kernels' boundary-heavy cases too) every build is
+   held against the plain version under mae, rmse and cheb (prefix_devs:
+   its greedy walk under mae, and at K <= 4,096 under rmse and cheb too),
+   at ``chip_smoke.TOL``, then timed under mae with CUDA events in turns
+   (parent, this tree, the variants, then the same in reverse; each turn
+   ``chip_smoke.device_ms``).
 2. Real launches (unless ``--no-real``): ``chip_smoke.py``'s seven
    main-path runs on the card (rounds and scan on both datasets, the
-   three sequential runs), every launch of the two kernels recorded with
-   its arguments, its output and how many of its candidates are interior
-   (``ref.interior_windows``: every head and tail mask 1).  Prints, per
-   run and kernel, the launches, the share of launches with a candidate
-   that is not interior and the interior share of candidates.  Then each
-   build replays every recorded launch (its outputs must equal the
-   recorded ones bit for bit) and is timed over them in the same turns:
-   the launches with every candidate interior and the others apart, in
-   chunks of 256 enqueued behind a busy card, so the sum is the kernel's
-   launch-weighted device time over the real runs.
+   three sequential runs), every launch of the kernels recorded with its
+   arguments, its output and, for the two Eq. 9 window kernels, how many
+   of its candidates are interior (``ref.interior_windows``: every head
+   and tail mask 1).  Prints, per run and kernel, the launches and, for
+   the window kernels, the share of launches with a candidate that is not
+   interior and the interior share of candidates.  Then each build
+   replays every recorded launch (its outputs must equal the recorded
+   ones, at ``chip_smoke.TOL``) and is timed over them in the same turns
+   (the window kernels' launches with every candidate interior and the
+   others apart), in chunks of 256 enqueued behind a busy card, so the sum
+   is the kernel's launch-weighted device time over the real runs.
 
 Prints one JSON line per case and writes all of them to
 ``chiprun_out/window_kernels_ab.json``.  Exits non-zero without a card or
@@ -38,6 +43,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib.util
 import json
 import statistics
 import subprocess
@@ -51,22 +57,30 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
 import chip_smoke  # noqa: E402
+from repro_torch.core import cameo as _cameo  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.kernels import acf_window_impact as _awi  # noqa: E402
-from repro_torch.kernels import fused_round as _fused  # noqa: E402
 from repro_torch.kernels import ops as _ops  # noqa: E402
 from repro_torch.kernels import ref as _ref  # noqa: E402
 
-STEMS = ("acf_window_impact", "window_rows")
+STEMS = ("acf_window_impact", "window_rows", "acf_impact", "lag_dot",
+         "prefix_devs")
+WINDOW = ("acf_window_impact", "window_rows")
+# each kernel's wrapper: (module of kernels/, function)
+WRAPPER_OF = {"acf_window_impact": ("acf_window_impact",
+                                    "acf_window_impact_cuda"),
+              "window_rows": ("fused_round", "window_rows_cuda"),
+              "acf_impact": ("acf_impact", "acf_impact_cuda"),
+              "lag_dot": ("lag_dot", "lag_dot_cuda"),
+              "prefix_devs": ("fused_round", "prefix_devs_cuda")}
 
 
-def build_other(name: str, tree: Path) -> dict:
-    """Another tree's two window kernels, built and loaded."""
+def build_other(name: str, tree: Path, stems) -> dict:
+    """Another tree's kernels, built and loaded."""
     out_dir = ROOT / "build" / f"ab_{name}"
     out_dir.mkdir(parents=True, exist_ok=True)
     csrc = tree / "src" / "repro_torch" / "kernels" / "csrc"
     procs = {}
-    for stem in STEMS:
+    for stem in stems:
         out = out_dir / f"lib{stem}.so"
         procs[stem] = (out, subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
@@ -77,97 +91,173 @@ def build_other(name: str, tree: Path) -> dict:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise SystemExit(f"build of {name}'s {stem}.cu failed:\n{log}")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"ptxas {name} {stem}: {line.strip()}")
         libs[stem] = ctypes.CDLL(str(out))
     return libs
 
 
-def cases(device):
-    """(kernel, dataset, label, run(measure), plain(measure)) for every
-    phase-3 case of the two kernels."""
+def tree_wrappers(name: str, tree: Path, stems) -> dict:
+    """kernel -> its wrapper as ``tree`` writes it: the tree's module of
+    ``kernels/`` loaded under a name of its own.  It imports this tree's
+    ``_build``, whose libraries ``use`` swaps, and this tree's other
+    modules."""
+    mods, out = {}, {}
+    for kname in stems:
+        mod, fn = WRAPPER_OF[kname]
+        if mod not in mods:
+            path = tree / "src" / "repro_torch" / "kernels" / f"{mod}.py"
+            spec = importlib.util.spec_from_file_location(
+                f"ab_{name}_{mod}", path)
+            mods[mod] = importlib.util.module_from_spec(spec)
+            spec.loader.exec_module(mods[mod])
+        out[kname] = getattr(mods[mod], fn)
+    return out
+
+
+def cases(device, stems):
+    """(kernel, dataset, label, call(wrapper, measure), plain(measure),
+    measures held) for every phase-3 case of the kernels."""
+    every = chip_smoke.MEASURES
     for name in chip_smoke.DATASETS:
-        for c in chip_smoke.window_rows_cases(device, name):
-            def run(measure, c=c):
-                return _fused.window_rows_cuda(*c["args"], L=c["L"],
-                                               measure=measure)
+        if "window_rows" in stems:
+            for c in chip_smoke.window_rows_cases(device, name):
+                def run(w, measure, c=c):
+                    return w(*c["args"], L=c["L"], measure=measure)
 
-            def plain(measure, c=c):
-                return _fused.window_rows_plain(*c["args"], L=c["L"],
-                                                measure=measure)
-            yield ("window_rows", name,
-                   f"{c['label']}: K={c['K']} Wy={c['Wy']} L={c['L']} "
-                   f"interior={c['interior']}", run, plain)
-        for c in chip_smoke.window_impact_cases(device, name):
-            def run(measure, c=c):
-                return _awi.acf_window_impact_cuda(
-                    *c["args"], ny=c["ny"], L=c["L"], measure=measure)
+                def plain(measure, c=c):
+                    return chip_smoke._fused.window_rows_plain(
+                        *c["args"], L=c["L"], measure=measure)
+                yield ("window_rows", name,
+                       f"{c['label']}: K={c['K']} Wy={c['Wy']} L={c['L']} "
+                       f"interior={c['interior']}", run, plain, every)
+        if "acf_window_impact" in stems:
+            for c in chip_smoke.window_impact_cases(device, name):
+                def run(w, measure, c=c):
+                    return w(*c["args"], ny=c["ny"], L=c["L"],
+                             measure=measure)
 
-            def plain(measure, c=c):
-                return _awi.acf_window_impact_plain(
-                    *c["args"], ny=c["ny"], L=c["L"], measure=measure)
-            yield ("acf_window_impact", name,
-                   f"{c['label']}: P={c['P']} W={c['W']} L={c['L']} "
-                   f"interior={c['interior']}", run, plain)
+                def plain(measure, c=c):
+                    return chip_smoke._awi.acf_window_impact_plain(
+                        *c["args"], ny=c["ny"], L=c["L"], measure=measure)
+                yield ("acf_window_impact", name,
+                       f"{c['label']}: P={c['P']} W={c['W']} L={c['L']} "
+                       f"interior={c['interior']}", run, plain, every)
+        if "acf_impact" in stems:
+            for c in chip_smoke.acf_impact_cases(device, name):
+                def run(w, measure, c=c):
+                    return w(*c["args"], measure=measure, **c["kw"])
+
+                def plain(measure, c=c):
+                    return chip_smoke._acf_impact.acf_impact_plain(
+                        *c["args"], measure=measure, **c["kw"])
+                yield "acf_impact", name, c["shape"], run, plain, every
+        if "lag_dot" in stems:
+            cfg, _, _, _, y64, *_ = chip_smoke.kernel_inputs(device, name)
+
+            def run(w, measure, y64=y64, L=cfg.lags):
+                return w(y64, L=L)
+
+            def plain(measure, y64=y64, L=cfg.lags):
+                return chip_smoke._lag_dot.lag_dot_plain(y64, L=L)
+            yield ("lag_dot", name, f"n={y64.shape[0]} L={cfg.lags} float64",
+                   run, plain, ("mae",))
+        if "prefix_devs" in stems:
+            for c in chip_smoke.prefix_cases(device, name):
+                K, Wy = c["args"][1].shape
+
+                def run(w, measure, c=c):
+                    return w(*c["args"], c["eps"], L=c["args"][4].shape[1],
+                             measure=measure, greedy=True)
+
+                def plain(measure, c=c):
+                    return chip_smoke._fused.prefix_devs_plain(
+                        *c["args"], c["eps"], L=c["args"][4].shape[1],
+                        measure=measure, greedy=True)
+                ok = int(c["args"][3].sum())
+                # the plain walk takes ~15 s a measure at aus_elec's K
+                yield ("prefix_devs", name,
+                       f"{c['label']}: K={K} ok={ok} Wy={Wy} greedy", run,
+                       plain, every if K <= 4096 else ("mae",))
 
 
 # the main-path runs of chip_smoke.py: (dataset, path, length)
 RUNS = [(name, path, chip_smoke.SEQ_LENGTHS[name] if path == "sequential"
          else None) for path in chip_smoke.PATHS
         for name in chip_smoke.DATASETS] + [("uk_elec", "sequential", None)]
-# the kernel's wrapper as its caller looks it up: (module, name)
-CALLERS = {"acf_window_impact": (_ops, "acf_window_impact_cuda"),
-           "window_rows": (_fused, "window_rows_cuda")}
+# each kernel's wrapper as its callers look it up: [(module, name)]
+CALLERS = {"acf_window_impact": [(_ops, "acf_window_impact_cuda")],
+           "window_rows": [(chip_smoke._fused, "window_rows_cuda")],
+           "acf_impact": [(_cameo, "acf_impact_cuda"),
+                          (_ops, "acf_impact_cuda")],
+           "lag_dot": [(_ops, "lag_dot_cuda")],
+           "prefix_devs": [(chip_smoke._fused, "prefix_devs_cuda")]}
 
 
-def record_runs(device) -> list:
-    """The seven main-path runs on the card, each launch of the two
-    kernels recorded: (run, kernel, launches) with each launch a dict of
-    its arguments, keywords, output and interior count."""
+def _clone(v):
+    return v.clone() if isinstance(v, torch.Tensor) else v
+
+
+# kernel -> the recorder standing in for its wrapper during a run
+recording_of: dict = {}
+
+
+def record_runs(device, stems) -> list:
+    """The seven main-path runs on the card, each launch of the kernels
+    recorded: (run, kernel, launches) with each launch a dict of its
+    arguments, keywords, output and, for the window kernels, its interior
+    count."""
     out = []
     for name, path, length in RUNS:
-        got = {k: [] for k in STEMS}
-        saved = {}
-        for kname, (mod, attr) in CALLERS.items():
-            wrapper = getattr(mod, attr)
-            saved[kname] = wrapper
+        got = {k: [] for k in stems}
+        saved = []
+        for kname in stems:
+            wrapper = chip_smoke.WRAPPERS[kname]
 
             def recording(*a, _w=wrapper, _k=kname, **kw):
                 res = _w(*a, **kw)
-                # the count lands on the original or on this recorder
-                me = getattr(CALLERS[_k][0], CALLERS[_k][1])
-                _w.launches = me.launches = max(_w.launches, me.launches)
-                if _k == "acf_window_impact":
-                    starts, W, ny = a[2], a[1].shape[1], kw["ny"]
-                else:
-                    starts, W, ny = a[2], a[1].shape[1], a[4]
-                inter = _ref.interior_windows(starts, W, kw["L"], ny).sum()
-                got[_k].append(dict(args=tuple(t.clone() for t in a), kw=kw,
-                                    out=res.clone(), interior=inter,
-                                    n=starts.numel()))
+                # the count lands on the original wrapper or, where its
+                # module names it by its own attribute, on this recorder
+                _w.launches = recording_of[_k].launches = max(
+                    _w.launches, recording_of[_k].launches)
+                rec = dict(args=tuple(_clone(t) for t in a),
+                           kw={k: _clone(v) for k, v in kw.items()},
+                           out=res.clone())
+                if _k in WINDOW:
+                    starts, W = a[2], a[1].shape[1]
+                    ny = kw["ny"] if _k == "acf_window_impact" else a[4]
+                    rec["interior"] = _ref.interior_windows(
+                        starts, W, kw["L"], ny).sum()
+                    rec["n"] = starts.numel()
+                got[_k].append(rec)
                 return res
-            # a wrapper counts its launches on the name it is bound to
             recording.launches = wrapper.launches
-            setattr(mod, attr, recording)
+            recording_of[kname] = recording
+            for mod, attr in CALLERS[kname]:
+                saved.append((mod, attr, getattr(mod, attr)))
+                setattr(mod, attr, recording)
         try:
             row = chip_smoke.phase_main(device, name, path, length,
                                         cpu_check=False)
         finally:
-            for kname, (mod, attr) in CALLERS.items():
-                setattr(mod, attr, saved[kname])
+            for mod, attr, fn in saved:
+                setattr(mod, attr, fn)
         for kname, calls in got.items():
             if not calls:
                 continue
-            inter = torch.stack([c["interior"] for c in calls]).tolist()
-            for c, i in zip(calls, inter):
-                c["interior"] = int(i)
+            if kname in WINDOW:
+                inter = torch.stack([c["interior"] for c in calls]).tolist()
+                for c, i in zip(calls, inter):
+                    c["interior"] = int(i)
             out.append((dict(dataset=name, path=path, n=row["n"],
                              iters=row["iters"], cr=row["cr"]), kname, calls))
     return out
 
 
-def replay_ms(kname: str, calls: list, device, chunk: int = 256) -> float:
-    """Device ms of ``calls`` launched back to back through the kernel's
-    wrapper, in chunks enqueued while the card is held busy."""
-    wrapper = getattr(*CALLERS[kname])
+def replay_ms(wrapper, calls: list, device, chunk: int = 256) -> float:
+    """Device ms of ``calls`` launched back to back through ``wrapper``, in
+    chunks enqueued while the card is held busy."""
     total = 0.0
     for c0 in range(0, len(calls), chunk):
         torch.cuda._sleep(50_000_000)
@@ -182,37 +272,43 @@ def replay_ms(kname: str, calls: list, device, chunk: int = 256) -> float:
     return total
 
 
-def real_rows(device, libs, use, turns) -> list:
-    """Interior shares and replay times of every build over the recorded
-    launches of the seven main-path runs."""
+def real_rows(device, libs, wrappers, use, turns, stems) -> list:
+    """Replay times of every build over the recorded launches of the seven
+    main-path runs, with the window kernels' interior shares."""
     rows = []
     use("this")
-    for run, kname, calls in record_runs(device):
-        wrapper = getattr(*CALLERS[kname])
-        split = {"all_interior": [c for c in calls if c["interior"] == c["n"]],
-                 "with_boundary": [c for c in calls
-                                   if c["interior"] < c["n"]]}
-        row = dict(run, kernel=kname, launches=len(calls),
-                   launches_with_boundary=len(split["with_boundary"]),
-                   share_launches_with_boundary=len(split["with_boundary"])
-                   / len(calls),
-                   candidates=sum(c["n"] for c in calls),
-                   interior_candidates=sum(c["interior"] for c in calls))
-        row["interior_share"] = row["interior_candidates"] / row["candidates"]
+    for run, kname, calls in record_runs(device, stems):
+        row = dict(run, kernel=kname, launches=len(calls))
+        if kname in WINDOW:
+            split = {"all_interior": [c for c in calls
+                                      if c["interior"] == c["n"]],
+                     "with_boundary": [c for c in calls
+                                       if c["interior"] < c["n"]]}
+            row.update(
+                launches_with_boundary=len(split["with_boundary"]),
+                share_launches_with_boundary=len(split["with_boundary"])
+                / len(calls),
+                candidates=sum(c["n"] for c in calls),
+                interior_candidates=sum(c["interior"] for c in calls))
+            row["interior_share"] = (row["interior_candidates"]
+                                     / row["candidates"])
+        else:
+            split = {"all": calls}
         for which in libs:
             use(which)
             for c in calls:
-                chip_smoke.require(
-                    torch.equal(wrapper(*c["args"], **c["kw"]), c["out"]),
-                    f"{which} {kname} differs from the recorded output on "
-                    f"a real launch of {run['dataset']} {run['path']}")
+                chip_smoke.check_close(
+                    f"{which} {kname}: a real launch of {run['dataset']} "
+                    f"{run['path']} against its recorded output", kname,
+                    wrappers[which][kname](*c["args"], **c["kw"]), c["out"])
         for part, sub in split.items():
             if not sub:
                 continue
             times = {which: [] for which in libs}
             for which in turns:
                 use(which)
-                times[which].append(replay_ms(kname, sub, device))
+                times[which].append(replay_ms(wrappers[which][kname], sub,
+                                              device))
             for which, ts in times.items():
                 row[f"{part}_ms_{which}"] = statistics.mean(ts)
                 row[f"{part}_ms_{which}_turns"] = ts
@@ -235,52 +331,66 @@ def main() -> int:
                     help="a checkout of the other commit")
     ap.add_argument("--variant", action="append", default=[],
                     metavar="NAME=DIR", help="one more tree to time")
+    ap.add_argument("--kernels", default=",".join(STEMS),
+                    help="the kernels to compare (default all)")
     ap.add_argument("--no-real", action="store_true",
                     help="time the phase-3 cases only")
     args = ap.parse_args()
+    stems = tuple(k for k in STEMS if k in args.kernels.split(","))
     if not torch.cuda.is_available():
         print("window_kernels_ab: no CUDA device", file=sys.stderr)
         return 2
     device = torch.device("cuda", 0)
     print(chip_smoke.nvidia_smi())
     _build.build_all()
-    libs = {"parent": build_other("parent", args.parent.resolve()),
-            "this": {s: _build.library(s) for s in STEMS}}
+    trees = {"parent": args.parent.resolve()}
     for v in args.variant:
         name, tree = v.split("=", 1)
-        libs[name] = build_other(name, Path(tree).resolve())
+        trees[name] = Path(tree).resolve()
+    libs = {"parent": build_other("parent", trees["parent"], stems),
+            "this": {s: _build.library(s) for s in stems}}
+    wrappers = {"parent": tree_wrappers("parent", trees["parent"], stems),
+                "this": dict(chip_smoke.WRAPPERS)}
+    for name, tree in trees.items():
+        if name != "parent":
+            libs[name] = build_other(name, tree, stems)
+            wrappers[name] = tree_wrappers(name, tree, stems)
     turns = list(libs) + list(libs)[::-1]
 
     def use(which):
-        for stem in STEMS:
+        for stem in stems:
             _build.use_library(stem, libs[which][stem])
 
     rows = []
-    for kname, dataset, label, run, plain in cases(device):
+    for kname, dataset, label, run, plain, measures in cases(device, stems):
         row = dict(kernel=kname, dataset=dataset, case=label)
+        want = {m: plain(m) for m in measures}
         for which in libs:
             use(which)
             err = 0.0
-            for measure in chip_smoke.MEASURES:
+            for measure in measures:
                 err = max(err, chip_smoke.check_close(
                     f"{which} {kname} {dataset} {label} ({measure})", kname,
-                    run(measure), plain(measure)))
+                    run(wrappers[which][kname], measure), want[measure]))
             row[f"max_abs_err_{which}"] = err
         times = {which: [] for which in libs}
+        reps = (5, 5) if kname == "prefix_devs" else (7, 20)
         for which in turns:
             use(which)
+            w = wrappers[which][kname]
             times[which].append(chip_smoke.device_ms(
-                lambda: run("mae"), device))
+                lambda: run(w, "mae"), device, *reps))
         for which, ts in times.items():
             row[f"ms_{which}"] = statistics.mean(ts)
             row[f"ms_{which}_turns"] = ts
         row["ratio"] = row["ms_this"] / row["ms_parent"]
         rows.append(row)
         print("ab " + json.dumps(row), flush=True)
-    use("this")
+        use("this")   # the next case's inputs are made through this tree
     floor = chip_smoke.launch_floor_ms(device)
     print("launch_floor " + json.dumps({"ms": floor}))
-    real = [] if args.no_real else real_rows(device, libs, use, turns)
+    real = [] if args.no_real else real_rows(device, libs, wrappers, use,
+                                             turns, stems)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "window_kernels_ab.json").write_text(json.dumps(
