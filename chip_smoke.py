@@ -27,8 +27,15 @@ Phases, each of which fails the run (non-zero exit) on a wrong result:
    round body's hook, with K, the ok count and the interior count); the
    two Eq. 9 window kernels are held exactly too, also on a
    boundary-heavy case each (every start within L + W of either end,
-   with its interior count); and an empty kernel, built and bound as the
-   others, timed as the launch floor;
+   with its interior count); prefix_sum (the Eq. 7 moments' and the dense
+   update's prefix sums) held exactly to torch.cumsum on the CPU, which
+   sums in its order; and an empty kernel, built and bound as the others,
+   timed as the launch floor.  Then the kernels of the rounds path with a
+   lane axis, one launch for a batch (uk_elec B = 16, aus_elec B = 4;
+   lag_dot's self and cross forms, prefix_sum, acf_impact, window_rows;
+   prefix_devs 2 lanes of uk_elec's random walk): each against its plain
+   version at its tolerance and, lane by lane, bit for bit against its
+   one-lane launch;
 4. main paths — ``compress()`` on the card with, for each run, every
    kernel of its path launched, deviation <= eps, a from-scratch float64
    re-measure on the CPU agreeing to 1e-9, endpoints kept and kept values
@@ -39,12 +46,19 @@ Phases, each of which fails the run (non-zero exit) on a wrong result:
    aus_elec (4,800).  Backoff and sequential CRs are held within 5% of the
    same call on the CPU; the scan's CR is reported beside the CPU path's
    (which runs the linearized branch, the card the greedy one) and the
-   card's backoff CR;
+   card's backoff CR.  Then the batch: ``compress_batch`` of uk_elec
+   (B = 16, seeds 0..15) and aus_elec (B = 4), each lane held against its
+   per-series ``compress_rounds`` on the card (kept mask, iterations and
+   the deviation's bits),
+   uk_elec at B = 64 timed only, and ``compress_multivariate`` of an
+   uk_elec-shaped ``[17,520, 4]``; every lane and column passes the
+   guarantee checks above, and a round launches acf_impact at most twice
+   and window_rows at most 2 x 2 times (two lane groups), whatever B;
 5. diagnostics — a lock-step scan round on uk_elec (from one carry on the
    card, the greedy branch with the prefix_devs kernel and with its plain
    version must take the same candidates), torch.profiler breakdowns of
-   the uk_elec rounds run, both scan runs and 256 pops of the uk_elec
-   sequential run at 4,096 points
+   the uk_elec rounds run, both scan runs, the uk_elec batch at B = 16
+   and 256 pops of the uk_elec sequential run at 4,096 points
    (``chiprun_out/profile_<dataset>_<path>.txt``: each hand kernel's
    device time a round or a pop, the launches a round or a pop, the
    card's idle share and the ok ranks the prefix walks take a round), and
@@ -88,6 +102,7 @@ from repro_torch.kernels import acf_window_impact as _awi  # noqa: E402
 from repro_torch.kernels import fused_round as _fused  # noqa: E402
 from repro_torch.kernels import lag_dot as _lag_dot  # noqa: E402
 from repro_torch.kernels import ops as _ops  # noqa: E402
+from repro_torch.kernels import prefix_sum as _prefix_sum  # noqa: E402
 from repro_torch.kernels import ref as _ref  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -99,40 +114,69 @@ WRAPPERS = {"lag_dot": _lag_dot.lag_dot_cuda,
             "acf_impact": _acf_impact.acf_impact_cuda,
             "window_rows": _fused.window_rows_cuda,
             "acf_window_impact": _awi.acf_window_impact_cuda,
-            "prefix_devs": _fused.prefix_devs_cuda}
+            "prefix_devs": _fused.prefix_devs_cuda,
+            "prefix_sum": _prefix_sum.prefix_sum_cuda}
 SOURCES = {"lag_dot": "src/repro_torch/kernels/csrc/lag_dot.cu",
            "acf_impact": "src/repro_torch/kernels/csrc/acf_impact.cu",
            "window_rows": "src/repro_torch/kernels/csrc/window_rows.cu",
            "acf_window_impact":
                "src/repro_torch/kernels/csrc/acf_window_impact.cu",
-           "prefix_devs": "src/repro_torch/kernels/csrc/prefix_devs.cu"}
+           "prefix_devs": "src/repro_torch/kernels/csrc/prefix_devs.cu",
+           "prefix_sum": "src/repro_torch/kernels/csrc/prefix_sum.cu"}
 REPLACES = {"lag_dot": "src/repro/kernels/lag_dot.py:42",
             "acf_impact": "src/repro/kernels/acf_impact.py:93",
             "window_rows": "src/repro/kernels/fused_round.py:276",
             "acf_window_impact": "src/repro/kernels/acf_window_impact.py:77",
-            "prefix_devs": "src/repro/kernels/fused_round.py:382"}
+            "prefix_devs": "src/repro/kernels/fused_round.py:382",
+            # an XLA cumsum on the TPU (no Pallas kernel)
+            "prefix_sum": "src/repro/core/aggregates.py:71"}
 # Each output is held to its plain version elementwise: |got - want| <=
 # rtol |want| + floor max|want|.  The floor scales with the output, so an
 # output of the wrong scale (zeros, say) fails whatever the inputs' size.
 # Every kernel but lag_dot rounds each operation as its plain version does
 # and sums in its order, so it is held exactly: the rankings and the scan's
 # decisions depend on every bit.  lag_dot's float64 sums run in another
-# order than the plain version's matmul: 1e-10.
+# order than the plain version's matmul: 1e-10.  prefix_sum is held
+# exactly to torch.cumsum on the CPU, which sums in its order (on the card
+# torch.cumsum's order differs).
 TOL = {"lag_dot": (1e-10, 1e-10), "acf_impact": (0.0, 0.0),
        "window_rows": (0.0, 0.0), "acf_window_impact": (0.0, 0.0),
-       "prefix_devs": (0.0, 0.0)}
+       "prefix_devs": (0.0, 0.0), "prefix_sum": (0.0, 0.0)}
 DATASETS = ("uk_elec", "aus_elec")
 MEASURES = ("mae", "rmse", "cheb")
 EPS = 1e-2
 # the main paths of phase 4: (name, CameoConfig overrides, kernels the path
 # launches, whether its CR is held within 5% of the CPU path's)
 PATHS = {
-    "rounds": (dict(), ("lag_dot", "acf_impact", "window_rows"), True),
-    "scan": (dict(select="scan"),
-             ("lag_dot", "acf_impact", "window_rows", "prefix_devs"), False),
+    "rounds": (dict(), ("lag_dot", "prefix_sum", "acf_impact",
+                        "window_rows"), True),
+    "scan": (dict(select="scan"), ("lag_dot", "prefix_sum", "acf_impact",
+                                   "window_rows", "prefix_devs"), False),
     "sequential": (dict(mode="sequential", hops=24, window=64),
-                   ("lag_dot", "acf_impact", "acf_window_impact"), True),
+                   ("lag_dot", "prefix_sum", "acf_impact",
+                    "acf_window_impact"), True),
 }
+# the batch phase (``compress_batch``): (dataset, lanes, whether each lane
+# is held against its per-series ``compress_rounds`` run on the card in the
+# same call); uk_elec at B = 64 is timed only (its per-series runs would
+# take ~75 s)
+BATCHES = (("uk_elec", 16, True), ("aus_elec", 4, True),
+           ("uk_elec", 64, False))
+# ``compress_multivariate``: uk_elec-shaped columns (seeds 0..C-1)
+MV_COLUMNS = 4
+# phase 3's batched shapes: lanes a launch at each dataset, and the lanes of
+# prefix_devs' batched random walk (uk_elec only: its plain version walks
+# each lane's 1,843 ranks one op at a time, ~3.6 s a lane on the card)
+KERNEL_LANES = {"uk_elec": 16, "aus_elec": 4}
+PREFIX_LANES = 2
+# lanes of the profiled compress_batch run (uk_elec)
+PROFILE_LANES = 16
+# rounds the divergence pass steps past the round where the free runs part
+DIVERGE_PAST = 10
+# window_rows launches a round body makes (tiers B and C); a round launches
+# acf_impact once and window_rows TIERS times for each of its (at most two)
+# lane groups, whatever the lanes
+TIERS = 2
 # the sequential mode's lengths (the quickstart's documented 4,096 points
 # for uk_elec, 100 y cells of kappa = 48 for aus_elec): it pops one point
 # per iteration, each a few ms of eager host dispatch on the card
@@ -240,6 +284,29 @@ def kernel_inputs(device, name: str, length=None, seed: int = 0):
     return cfg, n, nb, ny, y64, table, p0, dval
 
 
+def prefix_sum_entry(device, name: str, x: torch.Tensor) -> dict:
+    """prefix_sum on the rows of ``x`` (``[n]``, or ``[B, n]`` lanes in one
+    launch) against its plain version, torch.cumsum, on the CPU (its order)
+    at tolerance 0, and lanes against their one-lane launches; timed
+    against torch.cumsum on the card (the plain version and the library
+    call at once)."""
+    B = x.shape[0] if x.dim() == 2 else None
+    what = f"{name} prefix_sum" + (f" B={B}" if B else "")
+    got = _prefix_sum.prefix_sum_cuda(x)
+    err = check_close(what, "prefix_sum", got, _prefix_sum.prefix_sum_plain(
+        x.cpu()).to(x.device))
+    if B:
+        require_lanes(what, got, lambda b: _prefix_sum.prefix_sum_cuda(x[b]))
+    cumsum_ms = device_ms(lambda: _prefix_sum.prefix_sum_plain(x), device)
+    bnd, by = bound_ms(2 * 8 * x.numel(), float(x.numel()), FP64_FLOPS)
+    return dict(name="prefix_sum",
+                shape=(f"B={B} lanes x " if B else "") + f"n={x.shape[-1]} "
+                      f"float64", max_abs_err=err,
+                ms=device_ms(lambda: _prefix_sum.prefix_sum_cuda(x), device),
+                plain_ms=cumsum_ms, library_ms=cumsum_ms, bound_ms=bnd,
+                bound_by=by, **({"lanes": B} if B else {}))
+
+
 def phase_kernels(device, name: str, length=None) -> list:
     """Each kernel against its plain version at ``name``'s main-path
     shapes; one entry per kernel and shape (window_rows: its two tier
@@ -274,6 +341,10 @@ def phase_kernels(device, name: str, length=None) -> list:
         ms=device_ms(lambda: _lag_dot.lag_dot_cuda(y64, L=L), device),
         plain_ms=device_ms(lambda: _lag_dot.lag_dot_plain(y64, L=L), device),
         library_ms=device_ms(conv, device), bound_ms=bnd, bound_by=by))
+
+    # prefix_sum: the Eq. 7 moments' prefix sums at init (the dense update
+    # sums rows of the same length every round), float64
+    out.append(prefix_sum_entry(device, name, y64))
 
     # acf_impact: Eq. 8 impacts of every point, float32 (the rounds), and
     # float64 (the sequential init)
@@ -608,6 +679,185 @@ def prefix_case(device, what: str, args, eps, L: int,
 
 
 # ---------------------------------------------------------------------------
+# phase 3, lanes: the four kernels of the rounds path at a batch's shapes
+# ---------------------------------------------------------------------------
+
+def lanes_inputs(device, name: str, B: int, length=None):
+    """``kernel_inputs`` of B series of ``name`` (seeds 0..B-1), stacked on
+    a leading lane axis, with ``ny`` as one int32 value a lane."""
+    per = [kernel_inputs(device, name, length, seed=b) for b in range(B)]
+    cfg, _, nb, ny = per[0][:4]
+    y64, table, p0, dval = (torch.stack([p[i] for p in per])
+                            for i in (4, 5, 6, 7))
+    ny_t = torch.full((B,), ny, dtype=torch.int32, device=device)
+    return cfg, nb, ny, y64, table, p0, dval, ny_t
+
+
+def require_lanes(what: str, got, one) -> None:
+    """Each lane of a batched launch has the bits of its launch alone:
+    ``one(b)`` launches lane b by itself."""
+    for b in range(got.shape[0]):
+        require(torch.equal(got[b], one(b)),
+                f"{what}: lane {b} differs from its one-lane launch")
+
+
+def _lanes_entry(name, shape, err, ms, plain_ms, bound, B, library_ms=None):
+    bnd, by = bound
+    return dict(name=name, shape=shape, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, library_ms=library_ms, bound_ms=bnd,
+                bound_by=by, lanes=B)
+
+
+def phase_kernels_lanes(device, name: str, B: int, length=None,
+                        prefix_lanes: int = 0) -> list:
+    """lag_dot (self and cross forms), prefix_sum, acf_impact and
+    window_rows (and, with ``prefix_lanes``, prefix_devs) on B lanes of
+    ``name``'s main-path shapes, one launch for every lane: each against
+    its plain version at its tolerance and, lane by lane, against its
+    one-lane launch at tolerance 0."""
+    cfg, nb, ny, y64, table, p0, dval, ny_t = lanes_inputs(device, name, B,
+                                                          length)
+    L, kap, nyb = cfg.lags, cfg.kappa, y64.shape[-1]
+    out = []
+
+    # lag_dot, float64 self form: [B, nyb] -> [B, L]
+    got = _lag_dot.lag_dot_cuda(y64, L=L)
+    err = check_close(f"{name} lag_dot B={B}", "lag_dot", got,
+                      _lag_dot.lag_dot_plain(y64, L=L))
+    require_lanes(f"{name} lag_dot B={B}", got,
+                  lambda b: _lag_dot.lag_dot_cuda(y64[b], L=L))
+    b_ext = F.pad(y64, (0, L))
+
+    def conv():     # one grouped convolution: lane b's series against itself
+        return F.conv1d(b_ext[None, :, 1:], y64[:, None, :],
+                        groups=B).view(B, L)
+    out.append(_lanes_entry(
+        "lag_dot", f"B={B} lanes x n={nyb} L={L} float64", err,
+        device_ms(lambda: _lag_dot.lag_dot_cuda(y64, L=L), device),
+        device_ms(lambda: _lag_dot.lag_dot_plain(y64, L=L), device,
+                  reps=3, inner=3),
+        bound_ms(B * (nyb + L) * 8, B * 2.0 * nyb * L, FP64_FLOPS), B,
+        device_ms(conv, device)))
+
+    # lag_dot's cross form, the dense update's bilinear term: [B, nyb]
+    # against b [B, nyb]
+    other = torch.flip(y64, (-1,)).contiguous()
+    got = _lag_dot.lag_dot_cuda(y64, other, L=L)
+    check_close(f"{name} lag_dot B={B} (cross)", "lag_dot", got,
+                _lag_dot.lag_dot_plain(y64, other, L=L))
+    require_lanes(f"{name} lag_dot B={B} (cross)", got,
+                  lambda b: _lag_dot.lag_dot_cuda(
+                      y64[b:b + 1], other[b:b + 1], L=L)[0])
+
+    # prefix_sum, the dense update's prefix sums of every lane
+    out.append(prefix_sum_entry(device, name, y64))
+
+    # acf_impact, the rounds' float32 impacts of every point
+    args = (y64.float(), dval.float(), table.float(), p0.float())
+    kw = dict(L=L, ny=ny_t, kappa=kap)
+    err = 0.0
+    for measure in MEASURES:
+        got = _acf_impact.acf_impact_cuda(*args, measure=measure, **kw)
+        err = max(err, check_close(
+            f"{name} acf_impact B={B} ({measure})", "acf_impact", got,
+            _acf_impact.acf_impact_plain(*args, measure=measure, **kw)))
+        require_lanes(f"{name} acf_impact B={B} ({measure})", got,
+                      lambda b: _acf_impact.acf_impact_cuda(
+                          *(a[b] for a in args), measure=measure, L=L,
+                          ny=ny_t[b:b + 1], kappa=kap))
+    out.append(_lanes_entry(
+        "acf_impact", f"B={B} lanes x P={nb} nyb={nyb} kappa={kap} L={L} "
+                      f"float32", err,
+        device_ms(lambda: _acf_impact.acf_impact_cuda(
+            *args, measure="mae", **kw), device),
+        device_ms(lambda: _acf_impact.acf_impact_plain(
+            *args, measure="mae", **kw), device, reps=3, inner=3),
+        bound_ms(B * (nyb + nb + 6 * L + nb) * 4, B * nb * (22.0 * L + 3),
+                 FP32_FLOPS), B))
+
+    # window_rows, tiers B and C at the full-size round's capacities, each
+    # lane its own candidates
+    rng = np.random.default_rng(5)
+    scale = float(torch.std(dval.float())) * kap
+    W, WB = cfg.window, cameo._TIER_SMALL_W
+    tiers = []
+    for K, Wx in ((min(nb, max(24, nb // 24)), WB),
+                  (min(nb, max(16, nb // 48)), W)):
+        Wy = Wx if kap == 1 else Wx // kap + 2
+        starts = torch.from_numpy(rng.integers(1, ny - Wy, (B, K)).astype(
+            np.int32)).to(device)
+        dyws = torch.from_numpy((rng.standard_normal((B, K, Wy)) * scale
+                                 ).astype(np.float32)).to(device)
+        targs = (y64.float(), dyws, starts, table.float(), ny_t, p0.float())
+        err = 0.0
+        for measure in MEASURES:
+            got = _fused.window_rows_cuda(*targs, L=L, measure=measure)
+            err = max(err, check_close(
+                f"{name} window_rows B={B} (K={K}, Wy={Wy}, {measure})",
+                "window_rows", got,
+                _fused.window_rows_plain(*targs, L=L, measure=measure)))
+            require_lanes(
+                f"{name} window_rows B={B} (K={K}, Wy={Wy}, {measure})", got,
+                lambda b: _fused.window_rows_cuda(
+                    targs[0][b], dyws[b], starts[b], targs[3][b],
+                    ny_t[b:b + 1], targs[5][b], L=L, measure=measure))
+        tiers.append(dict(
+            K=K, Wy=Wy, err=err,
+            ms=device_ms(lambda: _fused.window_rows_cuda(
+                *targs, L=L, measure="mae"), device),
+            plain_ms=device_ms(lambda: _fused.window_rows_plain(
+                *targs, L=L, measure="mae"), device, reps=3, inner=3),
+            bound=window_rows_bound(B * K, Wy, L, B * nyb)))
+    out.append(_lanes_entry(
+        "window_rows", " + ".join(f"B={B} lanes x K={t['K']} Wy={t['Wy']}"
+                                  for t in tiers) + f" L={L} float32",
+        max(t["err"] for t in tiers),
+        *[None if None in v else sum(v) for v in
+          ([t["ms"] for t in tiers], [t["plain_ms"] for t in tiers])],
+        (sum(t["bound"][0] for t in tiers),
+         max(tiers, key=lambda t: t["bound"][0])["bound"][1]), B))
+
+    # prefix_devs, prefix_lanes lanes of the scan's random walk (70% ok,
+    # eps at the middle of each lane's prefix curve), one block a lane
+    if prefix_lanes:
+        Bp = prefix_lanes
+        K = max(1, min(int(cfg.alpha * nb), nb - 2))
+        Wy = cfg.window if kap == 1 else cfg.window // kap + 2
+        sc = float(torch.std(y64[0, :ny])) * 0.05
+        rng = np.random.default_rng(6)
+        pargs = (y64[:Bp].contiguous(),
+                 torch.from_numpy(rng.standard_normal((Bp, K, Wy)) * sc * 0.2
+                                  ).to(device),
+                 torch.from_numpy(rng.integers(1, ny - Wy, (Bp, K)).astype(
+                     np.int32)).to(device),
+                 torch.from_numpy(rng.random((Bp, K)) > 0.3).to(device),
+                 table[:Bp].contiguous(), p0[:Bp].contiguous(),
+                 ny_t[:Bp].contiguous())
+        curve = _fused.prefix_devs_cuda(*pargs, L=L, measure="mae")
+        eps = torch.sort(curve, dim=-1).values[:, K // 2].contiguous()
+        kwp = dict(L=L, measure="mae", greedy=True)
+        got = _fused.prefix_devs_cuda(*pargs, eps, **kwp)
+        want, plain_ms = timed_once(lambda: _fused.prefix_devs_plain(
+            *pargs, eps, **kwp), device)
+        err = check_close(f"{name} prefix_devs B={Bp} (greedy, mae)",
+                          "prefix_devs", got, want)
+        require_lanes(f"{name} prefix_devs B={Bp} (greedy, mae)", got,
+                      lambda b: _fused.prefix_devs_cuda(
+                          *(a[b] for a in pargs[:6]), ny_t[b:b + 1],
+                          eps[b:b + 1], **kwp))
+        n_ok = int(pargs[3].sum())
+        out.append(_lanes_entry(
+            "prefix_devs", f"B={Bp} lanes x random: K={K} ok={n_ok} (all "
+                           f"lanes) Wy={Wy} L={L} nyb={nyb} float64 greedy",
+            err, device_ms(lambda: _fused.prefix_devs_cuda(
+                *pargs, eps, **kwp), device, reps=5, inner=5),
+            plain_ms, prefix_bound(Bp * K, n_ok, Wy, L, Bp * nyb), Bp))
+    for r in out:
+        r["dataset"] = name
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4: the main path at full width
 # ---------------------------------------------------------------------------
 
@@ -621,6 +871,21 @@ def remeasure(x: np.ndarray, xr: np.ndarray, cfg) -> float:
         agg = extract_aggregates(y, cfg.lags, backend="reference")
         stats.append(transform(acf_from_aggregates(agg, y.shape[0])))
     return float(mfn(stats[1], stats[0]))
+
+
+def check_guarantee(what: str, x: np.ndarray, xr: np.ndarray,
+                    kept: np.ndarray, dev: float, cfg) -> float:
+    """The guarantee of one compressed series: deviation <= eps, a
+    from-scratch float64 re-measure on the CPU agreeing to 1e-9, endpoints
+    kept and kept values bit-exact.  Returns the re-measure."""
+    require(dev <= cfg.eps + 1e-12, f"{what}: deviation {dev} > eps")
+    re = remeasure(x, xr, cfg)
+    require(abs(re - dev) <= 1e-9,
+            f"{what}: re-measured deviation {re} != reported {dev}")
+    require(bool(kept[0] and kept[-1]), f"{what}: an endpoint was dropped")
+    require(np.array_equal(xr[kept], x[kept]),
+            f"{what}: kept values are not bit-exact")
+    return re
 
 
 def _path_cfg(name: str, path: str):
@@ -676,13 +941,7 @@ def phase_main(device, name: str, path: str = "rounds", length=None,
     xr = res.xr.cpu().numpy()
     dev = float(res.deviation)
     what = f"{name} {path}"
-    require(dev <= cfg.eps + 1e-12, f"{what}: deviation {dev} > eps")
-    re = remeasure(x, xr, cfg)
-    require(abs(re - dev) <= 1e-9,
-            f"{what}: re-measured deviation {re} != reported {dev}")
-    require(bool(kept[0] and kept[-1]), f"{what}: an endpoint was dropped")
-    require(np.array_equal(xr[kept], x[kept]),
-            f"{what}: kept values are not bit-exact")
+    re = check_guarantee(what, x, xr, kept, dev, cfg)
     if device.type == "cuda":
         for kname in kernels:
             require(counts[kname] > 0,
@@ -707,26 +966,133 @@ def phase_main(device, name: str, path: str = "rounds", length=None,
     return row
 
 
+# ---------------------------------------------------------------------------
+# phase 4, batch: compress_batch and compress_multivariate
+# ---------------------------------------------------------------------------
+
+def batch_series(name: str, B: int, length=None) -> np.ndarray:
+    """B series of dataset ``name`` (seeds 0..B-1) at full width, ``[B,
+    n]``, trimmed to a multiple of kappa."""
+    kap = dataset_cameo_kwargs(name).get("kappa", 1)
+    xs = np.stack([make_dataset(name, seed=b, length=length)
+                   for b in range(B)])
+    return xs[:, :(xs.shape[1] // kap) * kap]
+
+
+def _run_timed(fn, device):
+    """(fn(), wall s, peak device memory) on a quiet card."""
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    mem = torch.cuda.max_memory_allocated() if device.type == "cuda" else None
+    return out, wall, mem
+
+
+def phase_batch(device, name: str, B: int, held: bool, length=None) -> dict:
+    """``compress_batch`` of B series of ``name`` on ``device``: every lane
+    passes the guarantee checks, the round launches each kernel of the
+    rounds path at most once a lane group (two groups), and, where
+    ``held``, each lane equals its per-series ``compress_rounds`` run on the
+    same device (kept mask, iterations and the deviation's bits)."""
+    cfg = cameo.CameoConfig(eps=EPS, **dataset_cameo_kwargs(name))
+    xs = batch_series(name, B, length)
+    n = xs.shape[1]
+    reset_counts()
+    res, wall, mem = _run_timed(
+        lambda: cameo.compress_batch(xs, cfg, device=device), device)
+    counts = read_counts()
+    kept, xr = res.kept.cpu().numpy(), res.xr.cpu().numpy()
+    devs, iters = res.deviation.cpu().numpy(), res.iters.cpu().numpy()
+    what = f"{name} batch B={B}"
+    for b in range(B):
+        check_guarantee(f"{what} lane {b}", xs[b], xr[b], kept[b],
+                        float(devs[b]), cfg)
+    rounds = int(iters.max())
+    per_round = {k: c / max(rounds, 1) for k, c in counts.items()}
+    if device.type == "cuda":
+        for kname in PATHS["rounds"][1]:
+            require(counts[kname] > 0,
+                    f"{what}: kernel {kname} was never launched")
+        require(per_round["acf_impact"] <= 2
+                and per_round["window_rows"] <= 2 * TIERS,
+                f"{what}: {per_round['acf_impact']} acf_impact and "
+                f"{per_round['window_rows']} window_rows launches a round, "
+                f"more than the two lane groups' 2 and {2 * TIERS}")
+    row = dict(dataset=name, B=B, n=n, lags=cfg.lags, kappa=cfg.kappa,
+               rounds=rounds, iters_min=int(iters.min()),
+               cr_mean=float(np.mean(n / kept.sum(axis=1))),
+               max_deviation=float(devs.max()), wall_s=wall,
+               launches=counts, launches_per_round=per_round,
+               max_memory_allocated=mem)
+    if held:
+        loop_s, dev_equal = 0.0, 0
+        for b in range(B):
+            one, s_b, _ = _run_timed(
+                lambda: cameo.compress_rounds(xs[b], cfg, device=device),
+                device)
+            loop_s += s_b
+            require(np.array_equal(one.kept.cpu().numpy(), kept[b])
+                    and int(one.iters) == int(iters[b])
+                    and float(one.deviation) == float(devs[b]),
+                    f"{what}: lane {b} parts from its per-series run "
+                    f"({int(iters[b])} rounds against {int(one.iters)}, "
+                    f"deviation {float(devs[b])!r} against "
+                    f"{float(one.deviation)!r})")
+        row.update(loop_wall_s=loop_s, lanes_held=B)
+    return row
+
+
+def phase_multivariate(device, name: str = "uk_elec", C: int = MV_COLUMNS,
+                       length=None) -> dict:
+    """``compress_multivariate`` of ``X [n, C]`` (C series of ``name`` as
+    columns): every column passes the guarantee checks on the shared
+    index."""
+    cfg = cameo.CameoConfig(eps=EPS, **dataset_cameo_kwargs(name))
+    X = np.ascontiguousarray(batch_series(name, C, length).T)
+    reset_counts()
+    res, wall, mem = _run_timed(
+        lambda: cameo.compress_multivariate(X, cfg, device=device), device)
+    counts = read_counts()
+    for c in range(C):
+        check_guarantee(f"{name} multivariate column {c}", X[:, c],
+                        res.xr[:, c], res.kept, float(res.deviations[c]),
+                        cfg)
+    if device.type == "cuda":
+        for kname in PATHS["rounds"][1]:
+            require(counts[kname] > 0, f"{name} multivariate: kernel "
+                                       f"{kname} was never launched")
+    return dict(dataset=name, C=C, n=X.shape[0], iters=res.iters,
+                n_kept=res.n_kept, cr=X.shape[0] / res.n_kept,
+                col_n_kept=res.col_n_kept.tolist(),
+                deviations=res.deviations.tolist(), wall_s=wall,
+                launches=counts, max_memory_allocated=mem)
+
+
 def _scan_state(device, name: str, rounds: int, length=None):
-    """A scan run on ``device`` stepped ``rounds`` rounds: the config, the
-    round functions' arguments, p0, the carry and the next round's
-    ``small``."""
+    """A scan run on ``device`` stepped ``rounds`` rounds (one lane): the
+    config, the round functions' arguments, p0, the carry and the next
+    round's ``small``."""
     cfg, _, _ = _path_cfg(name, "scan")
     x = make_dataset(name, seed=0, length=length)
     n = (x.shape[0] // cfg.kappa) * cfg.kappa
     nb = cameo._round_bucket(n, cfg)
-    xp = F.pad(torch.from_numpy(x[:n]), (0, nb - n)).to(device)
-    nv = torch.full((), n, dtype=torch.int32, device=device)
+    xp = F.pad(torch.from_numpy(x[:n]), (0, nb - n)).to(device)[None]
+    nv = torch.full((1,), n, dtype=torch.int32, device=device)
     min_alive, eps = cameo._halting_params(n, cfg)
-    consts = (torch.full((), min_alive, dtype=torch.int32, device=device),
-              torch.full((), eps, dtype=cfg.tdtype(), device=device))
+    consts = (torch.full((1,), min_alive, dtype=torch.int32, device=device),
+              torch.full((1,), eps, dtype=cfg.tdtype(), device=device))
     carry, p0 = cameo._rounds_init(xp, nv, cfg)
     probe, body = cameo._round_fns(cfg, nb, nv, *consts, p0)
     for _ in range(rounds):
-        go, small = probe(carry).tolist()
+        ((go, small),) = probe(carry).tolist()
         require(go, f"{name} scan ended before the lock-step round")
         carry = body(carry, small=small)
-    go, small = probe(carry).tolist()
+    ((go, small),) = probe(carry).tolist()
     require(go, f"{name} scan ended before the lock-step round")
     return cfg, (nb, nv, *consts, p0), carry, small
 
@@ -752,12 +1118,12 @@ def capture_round(device, name: str, rounds: int = 3, length=None) -> dict:
     """The arguments of the prefix walk of the scan's lock-step round
     (round ``rounds``, after that many rounds on ``device``), captured
     through the round body's ``prefix_devs_fn`` hook: ``args`` is (y, dyws,
-    ystarts, ok, table, p0, ny, eps)."""
+    ystarts, ok, table, p0, ny, eps) of the run's one lane."""
     device = torch.device(device)
     got = {}
 
     def recording(*a, **kw):
-        got.setdefault("args", tuple(t.clone() for t in a))
+        got.setdefault("args", tuple(t[0].clone() for t in a))
         return _fused.prefix_devs_cuda(*a, **kw)
     with card_dispatch(device):
         cfg, fargs, carry, small = _scan_state(device, name, rounds, length)
@@ -778,7 +1144,7 @@ def scan_lockstep(device, name: str = "uk_elec", rounds: int = 3) -> dict:
                     ("plain", _fused.prefix_devs_plain)):
         def recording(*a, _fn=fn, _key=key, **kw):
             devs = _fn(*a, **kw)
-            takes[_key] = (a[3] & (devs <= a[7])).cpu()
+            takes[_key] = (a[3] & (devs <= a[7][:, None])).cpu()
             return devs
         _, body_k = cameo._round_fns(cfg, *fargs, prefix_devs_fn=recording)
         outs[key] = body_k(carry, small=small)
@@ -825,15 +1191,28 @@ def _profiled_sequential(device, name: str, length: int, pops: int):
 def profile_main(device, name: str = "uk_elec", path: str = "rounds",
                  length=None, pops: int = 256) -> dict:
     """torch.profiler breakdown of one main-path run (rounds and scan: a
-    whole run; sequential: ``pops`` pops of a run at ``length`` points):
-    the card's busy time by kernel, each hand kernel's device time and
-    launches an iteration (a round or a pop), the idle share, and for the
-    scan the ranks and ok ranks the prefix walks take a round; written
-    under chiprun_out/."""
+    whole run; sequential: ``pops`` pops of a run at ``length`` points;
+    batch: ``compress_batch`` of ``PROFILE_LANES`` series): the card's
+    busy time by kernel, each hand kernel's device time and launches an
+    iteration (a round, of the slowest lane for a batch, or a pop), the
+    idle share, and for the scan the ranks and ok ranks the prefix walks
+    take a round; written under chiprun_out/."""
     from torch.profiler import ProfilerActivity, profile
     walks = []
     if path == "sequential":
         prof, wall, iters = _profiled_sequential(device, name, length, pops)
+    elif path == "batch":
+        cfg = cameo.CameoConfig(eps=EPS, **dataset_cameo_kwargs(name))
+        xs = batch_series(name, PROFILE_LANES, length)
+        cameo.compress_batch(xs, cfg, device=device)        # warm
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            res = cameo.compress_batch(xs, cfg, device=device)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        iters = int(res.iters.max())
     else:
         cfg, _, _ = _path_cfg(name, path)
         x = make_dataset(name, seed=0, length=length)
@@ -890,6 +1269,7 @@ def profile_main(device, name: str = "uk_elec", path: str = "rounds",
         events.table(sort_by=sort_key, row_limit=80))
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:10]
     out = dict(dataset=name, path=path,
+               lanes=PROFILE_LANES if path == "batch" else 1,
                iter="pop" if path == "sequential" else "round",
                iters=iters, wall_s=wall, host_s_per_iter=wall / per,
                device_busy_s=busy, idle_share=1.0 - busy / wall,
@@ -970,9 +1350,11 @@ def first_divergence(device, name: str = "aus_elec", length=None,
     from its own init, compared after every round until their kept masks
     first differ; and a lock-step run, where every round starts the card
     from the CPU path's carry (and p0), so a difference there is one the
-    card computes from equal inputs.  Reports the init's differences, the
-    free runs' parting round and what differed in the state it started
-    from, and the first ``keep`` lock-step rounds that differ."""
+    card computes from equal inputs.  The pass ends with the CPU run or
+    ``DIVERGE_PAST`` rounds after the free runs part (``rounds_cpu`` counts
+    the rounds stepped).  Reports the init's differences, the free runs'
+    parting round and what differed in the state it started from, and the
+    first ``keep`` lock-step rounds that differ."""
     device = torch.device(device)
     cpu = torch.device("cpu")
     cfg = cameo.CameoConfig(eps=EPS, **dataset_cameo_kwargs(name))
@@ -983,14 +1365,17 @@ def first_divergence(device, name: str = "aus_elec", length=None,
     min_alive, eps = cameo._halting_params(n, cfg)
 
     def setup(dev, p0=None):
-        nv = torch.full((), n, dtype=torch.int32, device=dev)
-        carry, p0_own = cameo._rounds_init(xp.to(dev), nv, cfg)
+        nv = torch.full((1,), n, dtype=torch.int32, device=dev)
+        carry, p0_own = cameo._rounds_init(xp.to(dev)[None], nv, cfg)
         probe, body = cameo._round_fns(
-            cfg, nb, nv, torch.full((), min_alive, dtype=torch.int32,
+            cfg, nb, nv, torch.full((1,), min_alive, dtype=torch.int32,
                                     device=dev),
-            torch.full((), eps, dtype=cfg.tdtype(), device=dev),
+            torch.full((1,), eps, dtype=cfg.tdtype(), device=dev),
             p0_own if p0 is None else p0.to(dev))
         return carry, p0_own, probe, body
+
+    def lane0(carry):
+        return tuple(t[0] for t in carry)
 
     carry_c, p0_c, probe_c, body_c = setup(cpu)
     carry_g, p0_g, probe_g, body_g = setup(device)
@@ -1004,17 +1389,18 @@ def first_divergence(device, name: str = "aus_elec", length=None,
     r = 0
     free_g = True
     while True:
-        go, small = probe_c(carry_c).tolist()
+        ((go, small),) = probe_c(carry_c).tolist()
         state_l = tuple(t.to(device) for t in carry_c)
-        gl = probe_l(state_l).tolist()
+        (gl,) = probe_l(state_l).tolist()
         if gl != [go, small]:
             n_lock += 1
             if len(lockstep) < keep:
                 lockstep.append(dict(round=r, probe_cpu=[go, small],
                                      probe_card=gl))
         if free_g:
-            go_g, small_g = probe_g(carry_g).tolist()
-        if not go:
+            ((go_g, small_g),) = probe_g(carry_g).tolist()
+        if not go or (parted is not None
+                      and r >= parted["round"] + DIVERGE_PAST):
             break
         nxt_c = body_c(carry_c, small=small)
         d = _carry_diffs(nxt_c, body_l(state_l, small=small))
@@ -1028,21 +1414,21 @@ def first_divergence(device, name: str = "aus_elec", length=None,
             free_g = False
         if free_g:
             nxt_g = body_g(carry_g, small=small_g)
-            if bool(torch.any(nxt_c[1] != nxt_g[1].cpu())) or \
-                    small_g != small:
-                pts = torch.nonzero(nxt_c[1] != nxt_g[1].cpu()).view(-1)
+            kept_c, kept_g = nxt_c[1][0], nxt_g[1][0].cpu()
+            if bool(torch.any(kept_c != kept_g)) or small_g != small:
+                pts = torch.nonzero(kept_c != kept_g).view(-1)
                 pts = pts[:8].tolist()
                 parted = dict(round=r, small_cpu=small, small_card=small_g,
                               state_before=_carry_diffs(carry_c, carry_g),
                               after=_carry_diffs(nxt_c, nxt_g),
                               removed_cpu=[i for i in pts
-                                           if not bool(nxt_c[1][i])],
+                                           if not bool(kept_c[i])],
                               removed_card=[i for i in pts
-                                            if not bool(nxt_g[1][i])],
-                              keys_cpu=_ranking_keys(carry_c, p0_c, cfg, n,
-                                                     pts),
-                              keys_card=_ranking_keys(carry_g, p0_g, cfg, n,
-                                                      pts))
+                                            if not bool(kept_g[i])],
+                              keys_cpu=_ranking_keys(lane0(carry_c), p0_c[0],
+                                                     cfg, n, pts),
+                              keys_card=_ranking_keys(lane0(carry_g),
+                                                      p0_g[0], cfg, n, pts))
                 free_g = False
             carry_g = nxt_g
         carry_c = nxt_c
@@ -1053,30 +1439,44 @@ def first_divergence(device, name: str = "aus_elec", length=None,
 
 def run_phases(device, *, uk_length=None, aus_length=None,
                seq_lengths=None, seq_full=(), cpu_check: bool = True,
+               batches=BATCHES, kernel_lanes=None,
+               prefix_lanes: int = PREFIX_LANES, mv_columns: int = MV_COLUMNS,
                log=print) -> dict:
     """Phases 3-4 on ``device``: each kernel against its plain version at
-    both datasets' shapes, then the main paths on uk_elec and aus_elec
-    (rounds and scan at ``uk_length``/``aus_length``, default full;
-    sequential at ``seq_lengths``, default ``SEQ_LENGTHS``, and at full
-    length for the datasets in ``seq_full``, without the CPU run).
-    Returns the report."""
+    both datasets' shapes, one series and lanes (``kernel_lanes``, default
+    ``KERNEL_LANES``), then the main paths on uk_elec and aus_elec (rounds
+    and scan at ``uk_length``/``aus_length``, default full; sequential at
+    ``seq_lengths``, default ``SEQ_LENGTHS``, and at full length for the
+    datasets in ``seq_full``, without the CPU run), then the batch phase
+    (``batches`` and ``compress_multivariate`` of ``mv_columns`` columns,
+    at the same lengths).  Returns the report."""
     device = torch.device(device)
     lengths = dict(zip(DATASETS, (uk_length, aus_length)))
     seq_lengths = seq_lengths or SEQ_LENGTHS
+    kernel_lanes = kernel_lanes or KERNEL_LANES
+    seconds = {}
+    t0 = time.perf_counter()
     kernels = []
     for name in DATASETS:
-        for k in phase_kernels(device, name, lengths[name]):
-            kernels.append(k)
-            log(f"kernel {k['name']} {name} [{k['shape']}] max_abs_err="
-                f"{k['max_abs_err']:.3e} tol rtol {TOL[k['name']][0]} + "
-                f"{TOL[k['name']][1]} x max|plain| ms={k['ms']} "
-                f"plain_ms={k['plain_ms']} library_ms={k['library_ms']} "
-                f"bound_ms={k['bound_ms']:.3e} ({k['bound_by']})")
+        kernels += phase_kernels(device, name, lengths[name])
+    seconds["kernels"] = time.perf_counter() - t0
+    for name in DATASETS:
+        kernels += phase_kernels_lanes(
+            device, name, kernel_lanes[name], lengths[name],
+            prefix_lanes=prefix_lanes if name == "uk_elec" else 0)
+    seconds["kernels_lanes"] = time.perf_counter() - t0 - seconds["kernels"]
+    for k in kernels:
+        log(f"kernel {k['name']} {k['dataset']} [{k['shape']}] max_abs_err="
+            f"{k['max_abs_err']:.3e} tol rtol {TOL[k['name']][0]} + "
+            f"{TOL[k['name']][1]} x max|plain| ms={k['ms']} "
+            f"plain_ms={k['plain_ms']} library_ms={k['library_ms']} "
+            f"bound_ms={k['bound_ms']:.3e} ({k['bound_by']})")
     floor = launch_floor_ms(device)
     log(f"launch_floor ms={floor} (an empty kernel, built and bound as the "
         f"port's kernels are)")
     runs = []
     totals = dict.fromkeys(WRAPPERS, 0)
+    t0 = time.perf_counter()
     for path in PATHS:
         for name in DATASETS:
             length = seq_lengths[name] if path == "sequential" \
@@ -1097,8 +1497,26 @@ def run_phases(device, *, uk_length=None, aus_length=None,
     for name in DATASETS:
         # the scan's CR beside the card's backoff CR
         by[(name, "scan")]["cr_backoff"] = by[(name, "rounds")]["cr"]
-    return dict(kernels=kernels, runs=runs, launches=totals,
-                launch_floor_ms=floor)
+    seconds["main_paths"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    batch_rows = []
+    for name, B, held in batches:
+        row = phase_batch(device, name, B, held, lengths[name])
+        row["path"] = "batch"
+        batch_rows.append(row)
+        log("batch " + json.dumps(row))
+    if mv_columns:
+        row = phase_multivariate(device, "uk_elec", mv_columns,
+                                 lengths["uk_elec"])
+        row["path"] = "multivariate"
+        batch_rows.append(row)
+        log("multivariate " + json.dumps(row))
+    for row in batch_rows:
+        for kname, c in row["launches"].items():
+            totals[kname] += c
+    seconds["batch"] = time.perf_counter() - t0
+    return dict(kernels=kernels, runs=runs, batches=batch_rows,
+                launches=totals, launch_floor_ms=floor, seconds=seconds)
 
 
 def kernel_rows(report) -> list:
@@ -1152,27 +1570,43 @@ def main() -> int:
     # uk_elec's sequential run at its full 17,520 points too: ~4 ms of
     # host dispatch a pop on the card, so its CPU twin (~10 ms a pop) is
     # left to the 4,096-point run
+    seconds = {"build": info["seconds"]}
+    t0 = time.perf_counter()
     report = run_phases(device, seq_full=("uk_elec",))
+    seconds.update(report["seconds"])
     for r in report["runs"]:
         print("path " + json.dumps({k: r.get(k) for k in (
             "dataset", "path", "n", "iters", "iters_cpu", "cr", "cr_cpu",
             "cr_backoff", "same_kept", "wall_s", "s_per_iter",
             "wall_s_cpu")}))
+    for r in report["batches"]:
+        keys = (("dataset", "B", "n", "rounds", "iters_min", "cr_mean",
+                 "wall_s", "loop_wall_s", "lanes_held",
+                 "deviations_bit_equal", "launches_per_round",
+                 "max_memory_allocated") if r["path"] == "batch" else
+                ("dataset", "C", "n", "iters", "cr", "col_n_kept",
+                 "deviations", "wall_s", "max_memory_allocated"))
+        print(r["path"] + " " + json.dumps({k: r.get(k) for k in keys}))
+    t0 = time.perf_counter()
     print("lockstep " + json.dumps(scan_lockstep(device)))
     # the rounds path, then the scan on both datasets: how much of a scan
     # round the prefix walk takes, from the trace
     for name, path in (("uk_elec", "rounds"), ("uk_elec", "scan"),
-                       ("aus_elec", "scan")):
+                       ("aus_elec", "scan"), ("uk_elec", "batch")):
         print("profile " + json.dumps(profile_main(device, name, path)))
     # a block of sequential pops: the host dispatch a pop, and what the
     # ReHeap's acf_window_impact takes of it
     print("profile " + json.dumps(profile_main(
         device, "uk_elec", "sequential",
         length=SEQ_LENGTHS["uk_elec"], pops=256)))
+    seconds["lockstep_profiles"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     div = first_divergence(device)
     (ROOT / "chiprun_out" / "diverge_aus_elec.json").write_text(
         json.dumps(div, indent=1))
     print("diverge " + json.dumps(div))
+    seconds["divergence"] = time.perf_counter() - t0
+    print("seconds " + json.dumps(seconds))
 
     print(json.dumps({"kernels": kernel_rows(report)}))
     print(json.dumps({"ok": True, "device": {

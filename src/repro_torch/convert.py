@@ -4,7 +4,11 @@ CAMEO has no weights: what one package can hand the other is its
 configuration and the loop carries.  ``config_from_dict`` reads
 ``dataclasses.asdict`` of a JAX ``CameoConfig``.  The rounds carry travels
 as numpy arrays in JAX's 13-tuple order ``(xr, alive, prev, nxt, y, tbl,
-alpha, dev, rounds, done, blocked, retried, saw_c)``; the sequential carry
+alpha, dev, rounds, done, blocked, retried, saw_c)``.  The port's rounds
+carry always has a leading lane axis: JAX's batched carry (``vmap`` of the
+per-series one, as its ``compress_batch`` holds it) crosses as it is
+(``batched=True``), a per-series carry gains a lane axis of one on the
+way in and loses it on the way out.  The sequential carry
 in JAX's 10-tuple order ``(xr, alive, prev, nxt, imp, agg, y, dev, it,
 done)``, with ``agg`` the five per-lag aggregate rows (JAX's
 ``Aggregates``) or the packed ``[5, L]`` table.  This lets a test start the
@@ -35,17 +39,25 @@ def config_from_dict(d: dict) -> CameoConfig:
     return CameoConfig(**d)
 
 
-def carry_from_numpy(arrays, device) -> tuple:
-    """The rounds carry as tensors on ``device`` (dtypes as given)."""
+def carry_from_numpy(arrays, device, *, batched: bool = False) -> tuple:
+    """The port's rounds carry as tensors on ``device`` (dtypes as given)
+    from JAX's: batched (every field with a leading lane axis) or, by
+    default, one series (given a lane axis of one)."""
     if len(arrays) != 13:
         raise ValueError(f"a rounds carry has 13 fields, got {len(arrays)}")
-    return tuple(torch.from_numpy(np.array(a, copy=True)).to(device)
-                 for a in arrays)
+    out = tuple(torch.from_numpy(np.array(a, copy=True)).to(device)
+                for a in arrays)
+    return out if batched else tuple(t[None] for t in out)
 
 
-def carry_to_numpy(carry) -> tuple:
-    """The rounds carry as numpy arrays."""
-    return tuple(t.detach().cpu().numpy() for t in carry)
+def carry_to_numpy(carry, *, batched: bool = False) -> tuple:
+    """The port's rounds carry as numpy arrays in JAX's form: batched, or
+    (by default) the one series of a one-lane carry."""
+    if not batched and carry[0].shape[0] != 1:
+        raise ValueError(f"a carry of {carry[0].shape[0]} lanes is not one "
+                         f"series; pass batched=True")
+    return tuple(t.detach().cpu().numpy() if batched
+                 else t[0].detach().cpu().numpy() for t in carry)
 
 
 def sequential_carry_from_numpy(arrays, device) -> tuple:

@@ -5,6 +5,11 @@ The non-stationary aggregate form (Eq. 2) is driven by the five per-lag
 aggregates ``sx, sx_l, sx^2, sx_l^2, sxx_l`` (Eq. 7).  Index conventions
 are 0-based: for lag ``l`` the head range is ``t in [0, n-1-l]`` and the
 tail range ``t in [l, n-1]``; both have ``n - l`` elements.
+
+The rounds mode's functions (``extract_aggregates_masked``,
+``acf_from_aggregates``, ``aggregate_series``) also take a leading lane
+axis: series ``[B, n]``, aggregates ``[B, L]`` (tables ``[B, 5, L]``),
+valid lengths ``[B]``.
 """
 from __future__ import annotations
 
@@ -12,7 +17,7 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels.ref import gather_clamped
+from repro_torch.kernels.ref import agg_rows, gather_clamped, lane_col
 
 
 class Aggregates(NamedTuple):
@@ -26,15 +31,18 @@ class Aggregates(NamedTuple):
     sxx: torch.Tensor    # lagged product            sum_{t<=n-1-l} x_t x_{t+l}
 
 
-def _moment_sums(x: torch.Tensor, L: int, n_valid):
-    csum = torch.cumsum(x, dim=0)
-    csum2 = torch.cumsum(x * x, dim=0)
-    total, total2 = csum[-1], csum2[-1]
+def _moment_sums(x: torch.Tensor, L: int, n_valid, backend: str):
+    from repro_torch.kernels.ops import prefix_sum  # deferred: kernels sit below core
+    # one launch for both rows: on the card their chains run side by side
+    csum, csum2 = prefix_sum(torch.stack([x, x * x], dim=-2),
+                             backend).unbind(-2)
+    total, total2 = csum[..., -1:], csum2[..., -1:]
     l = torch.arange(1, L + 1, device=x.device)
     # head sums: prefix up to index n-1-l; tail sums: total minus the
     # prefix up to l-1 (indices follow JAX's wrap-then-clamp gather rule).
-    sx = gather_clamped(csum, n_valid - 1 - l)
-    sx2 = gather_clamped(csum2, n_valid - 1 - l)
+    head = lane_col(n_valid, x) - 1 - l
+    sx = gather_clamped(csum, head)
+    sx2 = gather_clamped(csum2, head)
     sxl = total - gather_clamped(csum, l - 1)
     sxl2 = total2 - gather_clamped(csum2, l - 1)
     return sx, sxl, sx2, sxl2
@@ -42,11 +50,12 @@ def _moment_sums(x: torch.Tensor, L: int, n_valid):
 
 def extract_aggregates(x: torch.Tensor, L: int,
                        backend: str = "auto") -> Aggregates:
-    """ExtractAggregates (Algorithm 1): O(nL), dominated by ``sxx_l``,
-    which goes through the impact-engine backend (``kernels/ops.lag_dot``:
-    the CUDA kernel for card tensors, the plain form elsewhere)."""
+    """ExtractAggregates (Algorithm 1): O(nL), dominated by ``sxx_l``.
+    It and the moments' prefix sums go through the impact-engine backend
+    (``kernels/ops.lag_dot`` and ``ops.prefix_sum``: the CUDA kernels for
+    card tensors, the plain forms elsewhere)."""
     from repro_torch.kernels.ops import lag_dot  # deferred: kernels sit below core
-    sx, sxl, sx2, sxl2 = _moment_sums(x, L, x.shape[0])
+    sx, sxl, sx2, sxl2 = _moment_sums(x, L, x.shape[0], backend)
     sxx = lag_dot(x, L, backend=backend)
     return Aggregates(sx=sx, sxl=sxl, sx2=sx2, sxl2=sxl2, sxx=sxx)
 
@@ -58,23 +67,25 @@ def extract_aggregates_masked(x: torch.Tensor, L: int, n_valid,
 
     ``x`` must be zero beyond ``n_valid`` (the padded-bucket discipline of
     the rounds mode): the tail sums and the lagged products are then exact
-    as they are, and only the head prefix sums need dynamic gathers.
+    as they are, and only the head prefix sums need dynamic gathers.  With
+    lanes, ``x`` is ``[B, n]`` and ``n_valid`` ``[B]``.
     """
     from repro_torch.kernels.ops import lag_dot  # deferred: kernels sit below core
-    sx, sxl, sx2, sxl2 = _moment_sums(x, L, n_valid)
+    sx, sxl, sx2, sxl2 = _moment_sums(x, L, n_valid, backend)
     sxx = lag_dot(x, L, backend=backend)
     return Aggregates(sx=sx, sxl=sxl, sx2=sx2, sxl2=sxl2, sxx=sxx)
 
 
 def acf_from_aggregates(agg, n) -> torch.Tensor:
-    """Eq. (2).  Returns the ACF for lags ``1..L`` (shape ``[L]``).
+    """Eq. (2).  Returns the ACF for lags ``1..L`` (shape ``[..., L]``).
 
-    ``agg`` is any structure indexable as the five per-lag rows; ``n`` a
-    Python int or a 0-d integer tensor.
+    ``agg`` is the ``Aggregates`` tuple or the ``[..., 5, L]`` table; ``n``
+    a Python int, a 0-d integer tensor or one per lane (``[B]``).
     """
-    sx, sxl, sx2, sxl2, sxx = agg[0], agg[1], agg[2], agg[3], agg[4]
+    sx, sxl, sx2, sxl2, sxx = agg_rows(agg)
     L = sx.shape[-1]
-    m = n - torch.arange(1, L + 1, dtype=sx.dtype, device=sx.device)
+    m = lane_col(n, sx) - torch.arange(1, L + 1, dtype=sx.dtype,
+                                        device=sx.device)
     num = m * sxx - sx * sxl
     var_head = m * sx2 - sx * sx
     var_tail = m * sxl2 - sxl * sxl
@@ -131,22 +142,23 @@ def pacf(x: torch.Tensor, L: int) -> torch.Tensor:
 
 def aggregate_series(x: torch.Tensor, kappa: int,
                      agg: str = "mean") -> torch.Tensor:
-    """``AGG_kappa(X)``: tumbling windows of ``kappa`` points.
+    """``AGG_kappa(X)``: tumbling windows of ``kappa`` points over the last
+    axis.
 
     ``n`` must be divisible by ``kappa`` (callers pad or trim).
     """
     if kappa == 1:
         return x
-    n = x.shape[0]
+    n = x.shape[-1]
     if n % kappa:
         raise ValueError(f"length {n} not divisible by kappa={kappa}")
-    xw = x.reshape(n // kappa, kappa)
+    xw = x.reshape(*x.shape[:-1], n // kappa, kappa)
     if agg == "mean":
-        return xw.mean(dim=1)
+        return xw.mean(dim=-1)
     if agg == "sum":
-        return xw.sum(dim=1)
+        return xw.sum(dim=-1)
     if agg == "max":
-        return xw.amax(dim=1)
+        return xw.amax(dim=-1)
     if agg == "min":
-        return xw.amin(dim=1)
+        return xw.amin(dim=-1)
     raise ValueError(f"unknown aggregation {agg!r}")

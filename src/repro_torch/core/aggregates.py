@@ -14,7 +14,11 @@ reconstruction ``xr`` that the compressor carries is exactly the one
 ``core.cameo._reconstruct`` rebuilds from the kept points.
 
 All functions operate on the target series ``y`` (the raw series for
-``kappa == 1``, the tumbling-window aggregate series for Def. 2).
+``kappa == 1``, the tumbling-window aggregate series for Def. 2).  The
+rounds mode's (``apply_delta_dense``, the neighbor geometry and the
+segment deltas) also take a leading lane axis, a batch of series
+``[B, n]`` with per-lane indices, tables ``[B, 5, L]`` and valid lengths
+``[B]``; each lane is computed exactly as it is alone.
 """
 from __future__ import annotations
 
@@ -22,22 +26,25 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.acf import Aggregates
+from repro_torch.kernels import ops as _ops
 from repro_torch.kernels import ref as _ref
-from repro_torch.kernels.ref import gather_clamped
+from repro_torch.kernels.ref import agg_rows, gather_clamped, lane_col, take
 
 
 # ---------------------------------------------------------------------------
 # Dense exact update (rounds mode)
 # ---------------------------------------------------------------------------
 
-def _dense_moment_deltas(y_old, delta, ny, L):
+def _dense_moment_deltas(y_old, delta, ny, L, backend):
     l = torch.arange(1, L + 1, device=y_old.device)
-    cd = torch.cumsum(delta, dim=0)
     e = delta * (2.0 * y_old + delta)
-    ce = torch.cumsum(e, dim=0)
-    dtot, etot = cd[-1], ce[-1]
-    dsx = gather_clamped(cd, ny - 1 - l)
-    dsx2 = gather_clamped(ce, ny - 1 - l)
+    # one launch for both rows: on the card their chains run side by side
+    cd, ce = _ops.prefix_sum(torch.stack([delta, e], dim=-2),
+                             backend).unbind(-2)
+    dtot, etot = cd[..., -1:], ce[..., -1:]
+    head = lane_col(ny, delta) - 1 - l
+    dsx = gather_clamped(cd, head)
+    dsx2 = gather_clamped(ce, head)
     dsxl = dtot - gather_clamped(cd, l - 1)
     dsxl2 = etot - gather_clamped(ce, l - 1)
     return dsx, dsxl, dsx2, dsxl2
@@ -46,35 +53,40 @@ def _dense_moment_deltas(y_old, delta, ny, L):
 def _with_deltas(agg, dtable):
     if isinstance(agg, torch.Tensor):
         return agg + dtable
-    return Aggregates(*(agg[i] + dtable[i] for i in range(5)))
+    return Aggregates(*(agg[i] + dtable[..., i, :] for i in range(5)))
 
 
 def apply_delta_dense(agg, y_old: torch.Tensor, delta: torch.Tensor,
-                      ny=None):
+                      ny=None, backend: str = "auto"):
     """Exact aggregate update for an arbitrary dense delta vector.
 
     ``y_old`` is the reconstruction before the update.  The four moment
-    sums cost O(ny + L) through cumulative sums; the bilinear ``sxx`` term
-    is two ``[nyb] x [nyb, L]`` products against shift views.
+    sums cost O(ny + L) through cumulative sums (``ops.prefix_sum``); the
+    bilinear ``sxx`` term is two lagged products (``ops.lag_dot``).
 
     ``agg`` may be the ``Aggregates`` tuple or the packed ``[5, L]`` table
     (the rounds-mode carry); the update comes back in the same form.
     ``ny`` (int or 0-d tensor) gives the valid length when ``y_old`` and
     ``delta`` live in a zero-padded bucket; both must be zero beyond it.
+    With lanes: ``y_old``/``delta [B, nyb]``, ``agg [B, 5, L]``, ``ny
+    [B]``; each lane's update has the bits of the lane alone.
     """
-    nyb = y_old.shape[0]
+    nyb = y_old.shape[-1]
     if ny is None:
         ny = nyb
-    L = agg[0].shape[-1]
-    dsx, dsxl, dsx2, dsxl2 = _dense_moment_deltas(y_old, delta, ny, L)
+    L = agg_rows(agg)[0].shape[-1]
+    dsx, dsxl, dsx2, dsxl2 = _dense_moment_deltas(y_old, delta, ny, L,
+                                                  backend)
     # new*new - old*old expanded over lag shifts:
     #   d_t*y_{t+l} + y_t*d_{t+l} + d_t*d_{t+l} = d_t*(y+d)_{t+l} + y_t*d_{t+l}
-    # Zero padding beyond ny nulls every invalid pair, so no lag mask.
-    z_pad = F.pad(y_old + delta, (0, L))
-    d_pad = F.pad(delta, (0, L))
-    dsxx = (delta @ z_pad.unfold(0, L, 1)[1:nyb + 1]
-            + y_old @ d_pad.unfold(0, L, 1)[1:nyb + 1])
-    return _with_deltas(agg, torch.stack([dsx, dsxl, dsx2, dsxl2, dsxx]))
+    # Zero padding beyond ny nulls every invalid pair, so no lag mask.  Both
+    # products are lag_dot's cross form: the kernel on the card, whose lanes
+    # each keep the bits of their launch alone (a batched cuBLAS product
+    # does not), the shift-view product elsewhere.
+    dsxx = (_ops.lag_dot(delta, L, b=y_old + delta, backend=backend)
+            + _ops.lag_dot(y_old, L, b=delta, backend=backend))
+    return _with_deltas(agg, torch.stack([dsx, dsxl, dsx2, dsxl2, dsxx],
+                                         dim=-2))
 
 
 def apply_delta_dense_ref(agg, y_old: torch.Tensor, delta: torch.Tensor,
@@ -85,7 +97,8 @@ def apply_delta_dense_ref(agg, y_old: torch.Tensor, delta: torch.Tensor,
     if ny is None:
         ny = nyb
     L = agg[0].shape[-1]
-    dsx, dsxl, dsx2, dsxl2 = _dense_moment_deltas(y_old, delta, ny, L)
+    dsx, dsxl, dsx2, dsxl2 = _dense_moment_deltas(y_old, delta, ny, L,
+                                                  "auto")
     t = torch.arange(nyb, device=y_old.device)
     terms = []
     for ll in range(1, L + 1):
@@ -162,13 +175,14 @@ def segment_interp(xr: torch.Tensor, prev: torch.Tensor, nxt: torch.Tensor,
     """Interpolated values over the interior of segment (prev[i], nxt[i]),
     at its first ``W`` interior positions.
 
-    Vectorized over ``i``; returns ``(vals [..., W], absj [..., W],
-    start [...], span [...])``.  ``absj`` are the (clamped) absolute
+    Vectorized over ``i`` (per lane, ``[B, K]``, where ``xr`` is
+    ``[B, n]``); returns ``(vals [..., W], absj [..., W], start [...],
+    span [...])``.  ``absj`` are the (clamped) absolute
     indices the values land on; positions at or beyond the span carry
     values the caller must mask.  The arithmetic matches
     :func:`interpolate_at` bit for bit.
     """
-    n = xr.shape[0]
+    n = xr.shape[-1]
     dt = xr.dtype
     p = gather_clamped(prev, i)
     q = gather_clamped(nxt, i)
@@ -180,8 +194,8 @@ def segment_interp(xr: torch.Tensor, prev: torch.Tensor, nxt: torch.Tensor,
     qcl = torch.clamp(q, 0, n - 1)[..., None]
     denom = torch.clamp_min((q - p).to(dt), 1.0)[..., None]
     t = (absj - pcl).to(dt) / denom
-    xp = xr[pcl]
-    vals = xp + (xr[qcl] - xp) * t
+    xp = take(xr, pcl)
+    vals = xp + (take(xr, qcl) - xp) * t
     return vals, absj, start, span
 
 
@@ -197,7 +211,7 @@ def segment_deltas(xr: torch.Tensor, prev: torch.Tensor, nxt: torch.Tensor,
     vals, absj, start, span = segment_interp(xr, prev, nxt, i, W)
     j = torch.arange(W, dtype=torch.int32, device=xr.device)
     m = (j < span[..., None]).to(dt)
-    dwin = (vals - xr[absj]) * m
+    dwin = (vals - take(xr, absj)) * m
     return dwin, start, span
 
 
@@ -206,21 +220,22 @@ def segment_deltas(xr: torch.Tensor, prev: torch.Tensor, nxt: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def alive_neighbors(alive: torch.Tensor):
-    """For every index i, the nearest alive index strictly left / right.
+    """For every index i, the nearest alive index strictly left / right
+    (along the last axis, lane by lane).
 
     Returns ``(prev, nxt)`` int32 tensors; ``prev[i] = -1`` if none,
     ``nxt[i] = n`` if none.  O(n) through a cumulative max and a flipped
     cumulative min.
     """
-    n = alive.shape[0]
+    n = alive.shape[-1]
     idx = torch.arange(n, dtype=torch.int32, device=alive.device)
     left_ids = torch.where(alive, idx, -1)
-    prev_incl = torch.cummax(left_ids, dim=0).values
-    prev = F.pad(prev_incl[:-1], (1, 0), value=-1)
+    prev_incl = torch.cummax(left_ids, dim=-1).values
+    prev = F.pad(prev_incl[..., :-1], (1, 0), value=-1)
     right_ids = torch.where(alive, idx, n)
     nxt_incl = torch.flip(
-        torch.cummin(torch.flip(right_ids, (0,)), dim=0).values, (0,))
-    nxt = F.pad(nxt_incl[1:], (0, 1), value=n)
+        torch.cummin(torch.flip(right_ids, (-1,)), dim=-1).values, (-1,))
+    nxt = F.pad(nxt_incl[..., 1:], (0, 1), value=n)
     return prev, nxt
 
 
@@ -229,21 +244,24 @@ def neighbors_after_removal(prev: torch.Tensor, nxt: torch.Tensor,
     """``alive_neighbors`` after removing an independent set, by pointer
     jump: any index whose neighbor was removed inherits that neighbor's
     neighbor (a removed point's own neighbors are alive)."""
-    n = prev.shape[0]
+    n = prev.shape[-1]
     pj = torch.clamp(prev, 0, n - 1)
     qj = torch.clamp(nxt, 0, n - 1)
-    prev_new = torch.where(removed[pj] & (prev >= 0), prev[pj], prev)
-    nxt_new = torch.where(removed[qj] & (nxt <= n - 1), nxt[qj], nxt)
+    prev_new = torch.where(take(removed, pj) & (prev >= 0), take(prev, pj),
+                           prev)
+    nxt_new = torch.where(take(removed, qj) & (nxt <= n - 1), take(nxt, qj),
+                          nxt)
     return prev_new, nxt_new
 
 
 def interpolate_at(x: torch.Tensor, prev: torch.Tensor, nxt: torch.Tensor,
                    i: torch.Tensor) -> torch.Tensor:
-    """Value of the line through the alive neighbors of i, evaluated at i."""
-    n = x.shape[0]
+    """Value of the line through the alive neighbors of i, evaluated at i
+    (lane by lane for ``x [B, n]``)."""
+    n = x.shape[-1]
     p = torch.clamp(prev, 0, n - 1)
     q = torch.clamp(nxt, 0, n - 1)
-    xp, xq = x[p], x[q]
+    xp, xq = take(x, p), take(x, q)
     denom = torch.clamp_min((q - p).to(x.dtype), 1.0)
     t = (i - p).to(x.dtype) / denom
     return xp + (xq - xp) * t

@@ -50,6 +50,11 @@
 //   odd stride, so the reducers' loads do not collide) and, after one more
 //   barrier, thread c of the block reduces candidate c's terms in lag order
 //   from 0 (a max for cheb).
+// - Lanes.  A batch of B series (y [B, nyb], dval [B, P], table [B, 5, L],
+//   p0 [B, L], ny [B] -> out [B, P]) is one launch: grid row blockIdx.y is
+//   a series, and the lanes a candidate are chosen for all B P candidates.
+//   No output depends on that choice (every form reduces in lag order from
+//   0), so each series gets the bits of its launch alone.
 // yi = p / kappa is a multiply and a shift by a constant formed on the
 // host.  Every product and sum is rounded on its own (rn.cuh, no fused
 // multiply-add) and every sum runs in the plain version's order, so the
@@ -82,6 +87,14 @@ acf_impact_kernel(const T* __restrict__ y, const T* __restrict__ dval,
   T* tab = reinterpret_cast<T*>(sm_raw);
   T* ys = tab + 6 * L;
   T* rows = ys + cpb + 2 * L + 2;
+  // this grid row's series
+  const size_t series = blockIdx.y;
+  y += series * nyb;
+  dval += series * P;
+  table += series * 5 * L;
+  p0 += series * L;
+  ny_ptr += series;
+  out += series * P;
   const win::Slot sl = win::slot(lanes, G, cpu, M);
   const int first = blockIdx.x * cpb;
   const int y0 = y_index(first, kmul, kshift) - L;
@@ -143,14 +156,15 @@ acf_impact_kernel(const T* __restrict__ y, const T* __restrict__ dval,
 template <typename T, bool kSolo>
 int launch_plan(const void* y, const void* dval, const void* table,
                 const void* p0, const void* ny, void* out, int P, int nyb,
-                int L, int kappa, int measure, int lanes, void* stream) {
+                int L, int kappa, int measure, int lanes, int B,
+                void* stream) {
   // shared memory: the table [6 L] and y's reach (at most cpb + 2 L + 2
   // values) fixed, one y value and (unless kSolo) a row of S terms a
   // candidate
   const int S = L | 1;
   win::Plan pl;
   cudaError_t err = win::plan(P, lanes, ((kSolo ? 0 : S) + 1) * sizeof(T),
-                              &pl, (8 * L + 2) * sizeof(T));
+                              &pl, (8 * L + 2) * sizeof(T), B);
   auto kernel = acf_impact_kernel<T, kSolo>;
   if (err == cudaSuccess) err = win::allow_smem(kernel, pl.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -161,7 +175,7 @@ int launch_plan(const void* y, const void* dval, const void* table,
   while ((1ll << lg) < kappa) ++lg;
   const int kshift = 31 + lg;
   const unsigned long long kmul = (1ull << kshift) / kappa + 1;
-  kernel<<<pl.blocks, pl.threads, pl.smem,
+  kernel<<<dim3(pl.blocks, B), pl.threads, pl.smem,
            static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(y), static_cast<const T*>(dval),
       static_cast<const T*>(table), static_cast<const T*>(p0),
@@ -173,8 +187,8 @@ int launch_plan(const void* y, const void* dval, const void* table,
 template <typename T>
 int launch(const void* y, const void* dval, const void* table, const void* p0,
            const void* ny, void* out, int P, int nyb, int L, int kappa,
-           int measure, void* stream) {
-  if (P < 1 || L < 1 || kappa < 1)
+           int measure, int B, void* stream) {
+  if (P < 1 || L < 1 || kappa < 1 || B < 1 || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   // the threads the card holds at once: its SMs times the blocks of
   // win::kBlock an SM keeps resident
@@ -190,33 +204,36 @@ int launch(const void* y, const void* dval, const void* table, const void* p0,
   const int warps = (L + 31) / 32 < win::kBlock / 32 ? (L + 31) / 32
                                                       : win::kBlock / 32;
   const long long per_lag = L <= 32 ? 32 / (32 / L) : 32 * warps;
+  const long long all = static_cast<long long>(B) * P;  // every series'
   int lanes = L;
-  if (static_cast<long long>(P) * per_lag > fill) {
+  if (all * per_lag > fill) {
     lanes = 1;
-    while (4 * lanes <= L && static_cast<long long>(P) * lanes * 2 <= fill)
-      lanes *= 2;
+    while (4 * lanes <= L && all * lanes * 2 <= fill) lanes *= 2;
   }
   if (lanes == 1)
     return launch_plan<T, true>(y, dval, table, p0, ny, out, P, nyb, L, kappa,
-                                measure, lanes, stream);
+                                measure, lanes, B, stream);
   return launch_plan<T, false>(y, dval, table, p0, ny, out, P, nyb, L, kappa,
-                               measure, lanes, stream);
+                               measure, lanes, B, stream);
 }
 
 }  // namespace
 
+// B series, each [nyb] / [P] / [5, L] / [L] / one ny, back to back.
 extern "C" int acf_impact_f32(const void* y, const void* dval,
                               const void* table, const void* p0,
                               const void* ny, void* out, int P, int nyb,
-                              int L, int kappa, int measure, void* stream) {
+                              int L, int kappa, int measure, int B,
+                              void* stream) {
   return launch<float>(y, dval, table, p0, ny, out, P, nyb, L, kappa, measure,
-                       stream);
+                       B, stream);
 }
 
 extern "C" int acf_impact_f64(const void* y, const void* dval,
                               const void* table, const void* p0,
                               const void* ny, void* out, int P, int nyb,
-                              int L, int kappa, int measure, void* stream) {
+                              int L, int kappa, int measure, int B,
+                              void* stream) {
   return launch<double>(y, dval, table, p0, ny, out, P, nyb, L, kappa,
-                        measure, stream);
+                        measure, B, stream);
 }

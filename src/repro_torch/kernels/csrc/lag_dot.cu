@@ -26,6 +26,10 @@
 // The partials and the counter are scratch the wrapper allocates once per
 // stream and size; launches on one stream run in order, so they never
 // share it at the same time.
+// Lanes (a batch of B series, a [B, n] -> out [B, L], the self form or the
+// cross form with b [B, n]): grid row blockIdx.y is a lane, with its own partials row and ticket, and its
+// last block sums its partials in block order, so each lane's output has
+// the bits of its launch alone.
 #include <cuda_runtime.h>
 
 namespace {
@@ -44,6 +48,13 @@ lag_dot_kernel(const T* __restrict__ a, const T* __restrict__ b,
   T* a_s = reinterpret_cast<T*>(smem_raw);
   T* b_s = a_s + TILE;  // b_s[i] = b_ext[t0 + 1 + i], i < TILE + L - 1
   __shared__ bool last;
+  // this grid row's series (a and b), partials row, ticket and output
+  const size_t series = blockIdx.y;
+  a += series * n;
+  b += series * n;
+  partials += series * gridDim.x * L;
+  ticket += series;
+  out += series * L;
   const int t0 = blockIdx.x * TILE;
   const int cnt = min(TILE, n - t0);
   // stage the tile: a thread makes its kStage loads before any store
@@ -114,8 +125,9 @@ lag_dot_kernel(const T* __restrict__ a, const T* __restrict__ b,
 
 template <typename T>
 int launch(const void* a, const void* b, const void* halo, void* partials,
-           void* ticket, void* out, int n, int L, void* stream) {
-  if (n < 1 || L < 1) return static_cast<int>(cudaErrorInvalidValue);
+           void* ticket, void* out, int n, int L, int B, void* stream) {
+  if (n < 1 || L < 1 || B < 1 || B > 65535 || (B > 1 && halo))
+    return static_cast<int>(cudaErrorInvalidValue);
   const int nblocks = (n + TILE - 1) / TILE;
   const size_t smem = (2 * TILE + L) * sizeof(T);
   // a warp sums 6 lags side by side where it owns more than one (L > 8:
@@ -127,7 +139,8 @@ int launch(const void* a, const void* b, const void* halo, void* partials,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  kernel<<<nblocks, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<dim3(nblocks, B), THREADS, smem,
+           static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(a), static_cast<const T*>(b),
       static_cast<const T*>(halo), static_cast<T*>(partials),
       static_cast<unsigned*>(ticket), static_cast<T*>(out), n, L);
@@ -138,21 +151,21 @@ int launch(const void* a, const void* b, const void* halo, void* partials,
 
 extern "C" {
 
-// Time-tile length: the wrapper sizes partials as [ceil(n / TILE), L].
+// Time-tile length: the wrapper sizes partials as [B, ceil(n / TILE), L].
 int lag_dot_tile(void) { return TILE; }
 
-// halo may be null (L zeros past b); ticket is one unsigned, 0 between
-// launches.
+// halo may be null (L zeros past b); ticket is one unsigned a lane, 0
+// between launches.  B > 1 lanes take no halo (b == a, or b [B, n]).
 int lag_dot_f64(const void* a, const void* b, const void* halo,
-                void* partials, void* ticket, void* out, int n, int L,
+                void* partials, void* ticket, void* out, int n, int L, int B,
                 void* stream) {
-  return launch<double>(a, b, halo, partials, ticket, out, n, L, stream);
+  return launch<double>(a, b, halo, partials, ticket, out, n, L, B, stream);
 }
 
 int lag_dot_f32(const void* a, const void* b, const void* halo,
-                void* partials, void* ticket, void* out, int n, int L,
+                void* partials, void* ticket, void* out, int n, int L, int B,
                 void* stream) {
-  return launch<float>(a, b, halo, partials, ticket, out, n, L, stream);
+  return launch<float>(a, b, halo, partials, ticket, out, n, L, B, stream);
 }
 
 }  // extern "C"

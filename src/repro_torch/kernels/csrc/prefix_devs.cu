@@ -63,6 +63,10 @@
 // scratch buffer (a second instantiation).  Every product and sum is
 // rounded on its own (rn.cuh) and runs in the plain version's order, so the
 // output equals the plain version bit for bit.
+// Lanes: a batch of B series (y [B, nyb], dyws [B, K, Wy], ystarts and ok
+// [B, K], table [B, 5, L], p0 [B, L], ny and eps [B] -> out [B, K]) is one
+// launch of B blocks, block b walking series b with its own zstride values
+// of scratch; each series gets the bits of its launch alone.
 #include <cuda_runtime.h>
 
 #include "rn.cuh"
@@ -110,7 +114,20 @@ prefix_devs_kernel(const T* __restrict__ y, const T* __restrict__ dyws,
                    const T* __restrict__ table, const T* __restrict__ p0,
                    const int* __restrict__ ny_ptr,
                    const T* __restrict__ eps_ptr, T* __restrict__ out, T* zg,
-                   int K, int Wy, int nyb, int L, int measure, int greedy) {
+                   size_t zstride, int K, int Wy, int nyb, int L, int measure,
+                   int greedy) {
+  // this block's series
+  const size_t series = blockIdx.x;
+  y += series * nyb;
+  dyws += series * K * Wy;
+  ystarts += series * K;
+  ok += series * K;
+  table += series * 5 * L;
+  p0 += series * L;
+  ny_ptr += series;
+  eps_ptr += series;
+  out += series * K;
+  zg += series * zstride;
   const int NT = kWarp ? 32 : blockDim.x;
   const int NW = NT / 32;
   const int PT = (kChunk + NT - 1) / NT;   // ranks a thread compacts
@@ -327,8 +344,8 @@ template <typename T, bool kWarp, bool ZS, bool kMulti>
 int launch_block(const void* y, const void* dyws, const void* ystarts,
                  const void* ok, const void* table, const void* p0,
                  const void* ny, const void* eps, void* out, void* scratch,
-                 int K, int Wy, int nyb, int L, int measure, int greedy,
-                 int threads, size_t smem, void* stream) {
+                 size_t zstride, int K, int Wy, int nyb, int L, int measure,
+                 int greedy, int B, int threads, size_t smem, void* stream) {
   auto kernel = prefix_devs_kernel<T, kWarp, ZS, kMulti>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -336,33 +353,37 @@ int launch_block(const void* y, const void* dyws, const void* ystarts,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  kernel<<<1, threads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<B, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(y), static_cast<const T*>(dyws),
       static_cast<const int*>(ystarts),
       static_cast<const unsigned char*>(ok), static_cast<const T*>(table),
       static_cast<const T*>(p0), static_cast<const int*>(ny),
       static_cast<const T*>(eps), static_cast<T*>(out),
-      static_cast<T*>(scratch), K, Wy, nyb, L, measure, greedy);
+      static_cast<T*>(scratch), zstride, K, Wy, nyb, L, measure, greedy);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The wrapper (fused_round.prefix_devs_cuda) decides use_smem from the same
-// layout and sizes scratch: z where use_smem is 0, then 10 (L - kMaxThreads)
-// moments where L > kMaxThreads.
+// layout and sizes scratch, for each of the B series: z where use_smem is
+// 0, then 10 (L - kMaxThreads) moments where L > kMaxThreads.
 template <typename T>
 int launch(const void* y, const void* dyws, const void* ystarts,
            const void* ok, const void* table, const void* p0, const void* ny,
            const void* eps, void* out, void* scratch, int K, int Wy, int nyb,
-           int L, int measure, int greedy, int use_smem, void* stream) {
-  if (L < 1) return static_cast<int>(cudaErrorInvalidValue);
+           int L, int measure, int greedy, int use_smem, int B,
+           void* stream) {
+  if (L < 1 || B < 1) return static_cast<int>(cudaErrorInvalidValue);
   const int threads = min(32 * ((L + 31) / 32), kMaxThreads);
+  const size_t zstride =
+      (use_smem ? 0 : static_cast<size_t>(nyb) + 2 * L + Wy) +
+      (L > kMaxThreads ? 10 * static_cast<size_t>(L - kMaxThreads) : 0);
   size_t smem = (L + 3 * Wy + kChunk) * sizeof(T) +
                 2 * kChunk * sizeof(unsigned short);
   if (use_smem) smem += (nyb + 2 * L + Wy) * sizeof(T);
 #define PREFIX_DEVS_LAUNCH(W, Z, X)                                          \
   launch_block<T, W, Z, X>(y, dyws, ystarts, ok, table, p0, ny, eps, out,   \
-                           scratch, K, Wy, nyb, L, measure, greedy, threads, \
-                           smem, stream)
+                           scratch, zstride, K, Wy, nyb, L, measure, greedy, \
+                           B, threads, smem, stream)
   if (threads == 32)
     return use_smem ? PREFIX_DEVS_LAUNCH(true, true, false)
                     : PREFIX_DEVS_LAUNCH(true, false, false);
@@ -376,17 +397,17 @@ int launch(const void* y, const void* dyws, const void* ystarts,
 
 }  // namespace
 
-// out is [K] trial deviations; scratch holds z when use_smem is 0, then the
-// moments of the lags past kMaxThreads.
+// out is [B, K] trial deviations; scratch holds, for each series, z when
+// use_smem is 0, then the moments of the lags past kMaxThreads.
 extern "C" int prefix_devs_f32(const void* y, const void* dyws,
                                const void* ystarts, const void* ok,
                                const void* table, const void* p0,
                                const void* ny, const void* eps, void* out,
                                void* scratch, int K, int Wy, int nyb, int L,
-                               int measure, int greedy, int use_smem,
+                               int measure, int greedy, int use_smem, int B,
                                void* stream) {
   return launch<float>(y, dyws, ystarts, ok, table, p0, ny, eps, out, scratch,
-                       K, Wy, nyb, L, measure, greedy, use_smem, stream);
+                       K, Wy, nyb, L, measure, greedy, use_smem, B, stream);
 }
 
 extern "C" int prefix_devs_f64(const void* y, const void* dyws,
@@ -394,9 +415,9 @@ extern "C" int prefix_devs_f64(const void* y, const void* dyws,
                                const void* table, const void* p0,
                                const void* ny, const void* eps, void* out,
                                void* scratch, int K, int Wy, int nyb, int L,
-                               int measure, int greedy, int use_smem,
+                               int measure, int greedy, int use_smem, int B,
                                void* stream) {
   return launch<double>(y, dyws, ystarts, ok, table, p0, ny, eps, out,
-                        scratch, K, Wy, nyb, L, measure, greedy, use_smem,
+                        scratch, K, Wy, nyb, L, measure, greedy, use_smem, B,
                         stream);
 }

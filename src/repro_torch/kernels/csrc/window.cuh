@@ -211,9 +211,11 @@ inline cudaError_t sm_count(int* n_sm) {
 }
 
 // L is the lanes a candidate takes (its lag count in the window kernels);
-// a block's shared memory is fixed_bytes plus cand_bytes a candidate.
+// a block's shared memory is fixed_bytes plus cand_bytes a candidate.  B
+// series (a batch, grid row blockIdx.y each) of P candidates: the SMs are
+// shared among all B P, and p->blocks is the blocks of one series.
 inline cudaError_t plan(int P, int L, size_t cand_bytes, Plan* p,
-                        size_t fixed_bytes = 0) {
+                        size_t fixed_bytes = 0, int B = 1) {
   int n_sm = 0;
   cudaError_t err = sm_count(&n_sm);
   if (err != cudaSuccess) return err;
@@ -233,9 +235,10 @@ inline cudaError_t plan(int P, int L, size_t cand_bytes, Plan* p,
     U = p->G;
     most = fit < kBlock / U ? fit : kBlock / U;
   }
-  const int per_sm = p->cpu * n_sm;
-  int units = (P + per_sm - 1) / per_sm;
-  units = units < 1 ? 1 : (units > most ? most : units);
+  const long long per_sm = static_cast<long long>(p->cpu) * n_sm;
+  const long long want = (static_cast<long long>(B) * P + per_sm - 1) / per_sm;
+  const int units =
+      want < 1 ? 1 : (want > most ? most : static_cast<int>(want));
   const int cpb = units * p->cpu;
   const int D = L <= 32 ? p->G : p->G / 32;
   p->cpb = cpb;

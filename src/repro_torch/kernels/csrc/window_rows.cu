@@ -38,6 +38,10 @@
 // barrier.  Tiny = 1e-30 in Eq. 2 (fused_round.py:236).  Products are
 // rounded on their own (rn.cuh, no fused multiply-add) and sums run first
 // to last, as in the plain version, so the output equals it bit for bit.
+// Lanes: a batch of B series (dyws [B, K, Wy], ystarts [B, K], y [B, nyb],
+// table [B, 5, L], ny [B], p0 [B, L] -> out [B, K]) is one launch, grid
+// row blockIdx.y a series, the packing planned for all B K candidates;
+// each series gets the bits of its launch alone.
 #include <cuda_runtime.h>
 
 #include "rn.cuh"
@@ -55,6 +59,15 @@ window_rows_kernel(const float* __restrict__ dyws,
                    int K, int Wy, int nyb, int L, int measure, int G,
                    int cpu, int cpb, int M) {
   extern __shared__ float sm[];
+  // this grid row's series
+  const size_t series = blockIdx.y;
+  dyws += series * K * Wy;
+  ystarts += series * K;
+  y += series * nyb;
+  table += series * 5 * L;
+  ny_ptr += series;
+  p0 += series * L;
+  out += series * K;
   const win::Slot sl = win::slot(L, G, cpu, M);
   const int k = blockIdx.x * cpb + sl.cand;
   const bool live = sl.active && k < K;
@@ -141,18 +154,19 @@ window_rows_kernel(const float* __restrict__ dyws,
 
 }  // namespace
 
-// out is [K] impacts against p0.
+// out is [B, K] impacts against p0, B series back to back.
 extern "C" int window_rows_f32(const void* dyws, const void* ystarts,
                                const void* y, const void* table,
                                const void* ny, const void* p0, void* out,
                                int K, int Wy, int nyb, int L, int measure,
-                               void* stream) {
+                               int B, void* stream) {
+  if (B < 1 || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
   win::Plan pl;
   const size_t cand = (3 * Wy + 4 * L) * sizeof(float);
-  cudaError_t err = win::plan(K, L, cand, &pl);
+  cudaError_t err = win::plan(K, L, cand, &pl, 0, B);
   if (err == cudaSuccess) err = win::allow_smem(window_rows_kernel, pl.smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  window_rows_kernel<<<pl.blocks, pl.threads, pl.smem,
+  window_rows_kernel<<<dim3(pl.blocks, B), pl.threads, pl.smem,
                        static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(dyws), static_cast<const int*>(ystarts),
       static_cast<const float*>(y), static_cast<const float*>(table),

@@ -23,6 +23,14 @@ applying it on top of what was committed, then a commit — always
 reference forms (:func:`prefix_acf_rows_ref`, the scan in
 :func:`greedy_feasible`) assume every earlier ``ok`` candidate applied, as
 the JAX package's do.
+
+Lanes.  Both kernels take a batch of series on a leading lane axis (``y
+[B, nyb]``, ``dyws [B, K, Wy]``, ``ystarts``/``ok [B, K]``, table ``[B, 5,
+L]``, ``p0 [B, L]``, ``ny``/``eps [B]`` → ``[B, K]``): one launch for every
+lane (``window_rows``: a grid row a lane; ``prefix_devs``: a block a lane),
+each lane's output the bits of its launch alone, as ``vmap`` over the TPU
+kernels gives them a batch grid axis.  The plain versions take the lane axis
+too (``window_rows`` with it broadcast, ``prefix_devs`` lane by lane).
 """
 from __future__ import annotations
 
@@ -33,6 +41,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ops as _ops
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.acf_impact import MEASURE_CODE
+from repro_torch.kernels.ref import lane_col, take
 
 
 def _cumsum_in_order(x):
@@ -107,36 +116,47 @@ def _moment_deltas_ref(d, ctx, ystarts, ny, *, L: int):
 
 
 def candidate_context(y, ystarts, *, L: int, Wy: int):
-    """Per-candidate ``[K, Wy + 2L]`` context of the zero-padded ``y`` at
-    the start clipped into ``[0, nyb)``, zeros out of range."""
-    nyb = y.shape[0]
+    """Per-candidate ``[..., K, Wy + 2L]`` context of the zero-padded ``y``
+    at the start clipped into ``[0, nyb)``, zeros out of range."""
+    nyb = y.shape[-1]
     starts = torch.clamp(ystarts, 0, nyb - 1)
     kk = torch.arange(Wy + 2 * L, device=y.device)
-    return F.pad(y, (L, L + Wy))[starts[:, None] + kk[None, :]]
+    return take(F.pad(y, (L, L + Wy)), starts[..., None] + kk)
 
 
 def solo_moment_rows(y, dyws, ystarts, ny, *, L: int):
-    """Aggregate-delta rows ``[K, 5, L]`` for each candidate applied alone
-    on the current reconstruction (context gathered from ``y`` only)."""
-    ctx = candidate_context(y, ystarts, L=L, Wy=dyws.shape[1])
-    return _moment_deltas(dyws.to(y.dtype), ctx, ystarts, ny, L=L)
+    """Aggregate-delta rows ``[..., K, 5, L]`` for each candidate applied
+    alone on the current reconstruction (context gathered from ``y``
+    only); lanes are taken as more candidates, each with its lane's
+    ``ny``."""
+    Wy = dyws.shape[-1]
+    ctx = candidate_context(y, ystarts, L=L, Wy=Wy)
+    d = dyws.to(y.dtype)
+    if y.dim() == 1:
+        return _moment_deltas(d, ctx, ystarts, ny, L=L)
+    B, K = ystarts.shape
+    ny_k = torch.as_tensor(lane_col(ny, ystarts), device=y.device)
+    rows = _moment_deltas(d.reshape(B * K, Wy), ctx.reshape(B * K, -1),
+                          ystarts.reshape(B * K),
+                          ny_k.expand(B, K).reshape(B * K, 1), L=L)
+    return rows.reshape(B, K, 5, L)
 
 
 def window_acf_rows(y, dyws, ystarts, agg_table, ny, *, L: int):
-    """Independent per-candidate Eq. 9 ACF rows ``[K, L]`` (the plain
+    """Independent per-candidate Eq. 9 ACF rows ``[..., K, L]`` (the plain
     version of the ``window_rows`` kernel)."""
     dt = y.dtype
-    cum = solo_moment_rows(y, dyws, ystarts, ny, L=L) + agg_table[None]
+    cum = solo_moment_rows(y, dyws, ystarts, ny, L=L) \
+        + agg_table.unsqueeze(-3)
     l = torch.arange(1, L + 1, device=y.device)
-    m = (ny - l).to(dt)[None, :]
-    return _ref.acf_from_moments(cum[:, 0], cum[:, 1], cum[:, 2],
-                                 cum[:, 3], cum[:, 4], m)
+    m = (lane_col(ny, ystarts[..., None]) - l).to(dt)
+    return _ref.acf_from_table(cum, m)
 
 
 def window_rows_plain(y, dyws, ystarts, agg_table, ny, p0, *, L: int,
                       measure: str):
     """Plain version of the ``window_rows`` kernel: the rows' deviations
-    from ``p0`` ``[K]`` (``ref.measure_rows`` over
+    from ``p0`` ``[..., K]`` (``ref.measure_rows`` over
     :func:`window_acf_rows`)."""
     rows = window_acf_rows(y, dyws, ystarts, agg_table, ny, L=L)
     return _ref.measure_rows(rows, p0, measure)
@@ -144,12 +164,13 @@ def window_rows_plain(y, dyws, ystarts, agg_table, ny, p0, *, L: int,
 
 def window_rows_cuda(y, dyws, ystarts, agg_table, ny, p0, *, L: int,
                      measure: str):
-    """Eq. 9 ranking impacts ``[K]``: each candidate's ACF row reduced to
-    its deviation from ``p0`` under ``measure`` (mae/rmse/cheb).  The CUDA
-    kernel for card tensors, the plain version for CPU tensors.
+    """Eq. 9 ranking impacts ``[K]`` (``[B, K]`` for lanes): each
+    candidate's ACF row reduced to its deviation from ``p0`` under
+    ``measure`` (mae/rmse/cheb).  The CUDA kernel for card tensors, the
+    plain version for CPU tensors.
 
-    On the card every operand is float32 (``ystarts`` int32) and ``ny`` a
-    1-element int32 device tensor, so the launch needs no host sync.
+    On the card every operand is float32 (``ystarts`` int32) and ``ny``
+    int32 device values, one a lane, so the launch needs no host sync.
     """
     if y.device.type != "cuda":
         return window_rows_plain(y, dyws, ystarts, agg_table, ny, p0, L=L,
@@ -168,22 +189,25 @@ def window_rows_cuda(y, dyws, ystarts, agg_table, ny, p0, *, L: int,
                 and t.dtype == torch.int32 and t.is_contiguous()):
             raise ValueError(f"window_rows: {name} must be a contiguous "
                              f"int32 tensor on {dev}")
-    K, Wy = dyws.shape
-    if (y.dim() != 1 or tuple(ystarts.shape) != (K,) or ny.numel() != 1
-            or tuple(agg_table.shape) != (5, L) or Wy < 1
-            or tuple(p0.shape) != (L,)):
+    lead = tuple(y.shape[:-1])
+    B = lead[0] if lead else 1
+    K, Wy = dyws.shape[-2:]
+    if (y.dim() not in (1, 2) or B < 1 or tuple(dyws.shape) != lead + (K, Wy)
+            or tuple(ystarts.shape) != lead + (K,) or ny.numel() != B
+            or tuple(agg_table.shape) != lead + (5, L) or Wy < 1
+            or tuple(p0.shape) != lead + (L,)):
         raise ValueError(
             f"window_rows: shapes y {tuple(y.shape)}, dyws {tuple(dyws.shape)}"
             f", ystarts {tuple(ystarts.shape)}, table {tuple(agg_table.shape)}"
             f", p0 {tuple(p0.shape)}, ny {tuple(ny.shape)} do not fit L={L}")
-    out = torch.empty((K,), dtype=torch.float32, device=dev)
+    out = torch.empty(lead + (K,), dtype=torch.float32, device=dev)
     if K == 0:
         return out
-    fn = _build.bind("window_rows", "window_rows_f32", 7, 5)
+    fn = _build.bind("window_rows", "window_rows_f32", 7, 6)
     _build.check(fn(dyws.data_ptr(), ystarts.data_ptr(), y.data_ptr(),
                     agg_table.data_ptr(), ny.data_ptr(), p0.data_ptr(),
-                    out.data_ptr(), K, Wy, y.shape[0], L,
-                    MEASURE_CODE[measure],
+                    out.data_ptr(), K, Wy, y.shape[-1], L,
+                    MEASURE_CODE[measure], B,
                     torch.cuda.current_stream(dev).cuda_stream),
                  "window_rows")
     window_rows_cuda.launches += 1
@@ -245,8 +269,17 @@ def prefix_devs_plain(y, dyws, ystarts, ok, agg_table, p0, ny, eps=None, *,
     ``clip(ystarts[k], 0, nyb - 1)`` gives trial moments (window sums
     first to last) and the trial deviation ``devs[k]``.  Then the candidate
     commits to ``z`` and to the table: always (``greedy=False``) or where
-    ``ok[k] & (devs[k] <= eps)`` (``greedy=True``).  Returns ``devs [K]``.
+    ``ok[k] & (devs[k] <= eps)`` (``greedy=True``).  Returns ``devs [K]``;
+    lane by lane (``[B, K]``) for a batch.
     """
+    if y.dim() == 2:
+        def lane(v, b):
+            return v[b] if torch.is_tensor(v) and v.dim() > 0 else v
+        return torch.stack([
+            prefix_devs_plain(y[b], dyws[b], ystarts[b], ok[b], agg_table[b],
+                              p0[b], lane(ny, b), lane(eps, b), L=L,
+                              measure=measure, greedy=greedy)
+            for b in range(y.shape[0])])
     K, Wy = dyws.shape
     nyb = y.shape[0]
     dt = y.dtype
@@ -314,18 +347,18 @@ def prefix_devs_layout(Wy, nyb, L, item):
 def prefix_devs_cuda(y, dyws, ystarts, ok, agg_table, p0, ny, eps=None, *,
                      L: int, measure: str = "mae", greedy: bool = False):
     """Per-rank deviations ``[K]`` of the prefix walk (see
-    :func:`prefix_devs_plain`): the CUDA kernel for card tensors, the plain
-    version for CPU tensors.
+    :func:`prefix_devs_plain`), ``[B, K]`` for lanes: the CUDA kernel for
+    card tensors (one block a lane), the plain version for CPU tensors.
 
     On the card the float operands share one dtype (float64 on the scan
     path), ``ystarts`` is int32, ``ok`` bool, and ``ny`` and ``eps`` are
-    1-element device tensors (int32 and the float dtype), so the launch
-    needs no host sync.  The kernel walks only the ``ok`` ranks (the others
-    get the committed deviation) and keeps ``z`` in shared memory while it
-    fits the block's 227 KB, else in a global scratch buffer on the same
-    code path (:func:`prefix_devs_layout`).  Past 512 lags a thread takes
-    several, and the moments of the lags past the first 512 sit in that
-    scratch buffer too.
+    device tensors of one element a lane (int32 and the float dtype), so
+    the launch needs no host sync.  The kernel walks only the ``ok`` ranks
+    (the others get the committed deviation) and keeps ``z`` in shared
+    memory while it fits the block's 227 KB, else in a global scratch
+    buffer on the same code path (:func:`prefix_devs_layout`).  Past 512
+    lags a thread takes several, and the moments of the lags past the first
+    512 sit in that scratch buffer too.
     """
     if y.device.type != "cuda":
         return prefix_devs_plain(y, dyws, ystarts, ok, agg_table, p0, ny, eps,
@@ -335,8 +368,10 @@ def prefix_devs_cuda(y, dyws, ystarts, ok, agg_table, p0, ny, eps=None, *,
         raise ValueError(f"prefix_devs reduces mae/rmse/cheb, got {measure!r}")
     if dt not in _PREFIX_SYMBOL:
         raise ValueError(f"prefix_devs: y must be float32 or float64, got {dt}")
+    lead = tuple(y.shape[:-1])
+    B = lead[0] if lead else 1
     if eps is None:
-        eps = torch.full((1,), float("inf"), dtype=dt, device=dev)
+        eps = torch.full((B,), float("inf"), dtype=dt, device=dev)
     for name, t, want in (("y", y, dt), ("dyws", dyws, dt),
                           ("table", agg_table, dt), ("p0", p0, dt),
                           ("eps", eps, dt), ("ystarts", ystarts, torch.int32),
@@ -345,29 +380,32 @@ def prefix_devs_cuda(y, dyws, ystarts, ok, agg_table, p0, ny, eps=None, *,
                 and t.dtype == want and t.is_contiguous()):
             raise ValueError(f"prefix_devs: {name} must be a contiguous "
                              f"{want} tensor on {dev}")
-    K, Wy = dyws.shape
-    nyb = y.shape[0]
-    if (y.dim() != 1 or tuple(ystarts.shape) != (K,)
-            or tuple(ok.shape) != (K,) or ny.numel() != 1
-            or eps.numel() != 1 or tuple(agg_table.shape) != (5, L)
-            or tuple(p0.shape) != (L,) or Wy < 1):
+    K, Wy = dyws.shape[-2:]
+    nyb = y.shape[-1]
+    if (y.dim() not in (1, 2) or B < 1 or tuple(dyws.shape) != lead + (K, Wy)
+            or tuple(ystarts.shape) != lead + (K,)
+            or tuple(ok.shape) != lead + (K,) or ny.numel() != B
+            or eps.numel() != B or tuple(agg_table.shape) != lead + (5, L)
+            or tuple(p0.shape) != lead + (L,) or Wy < 1):
         raise ValueError(
             f"prefix_devs: shapes y {tuple(y.shape)}, dyws {tuple(dyws.shape)}"
             f", ystarts {tuple(ystarts.shape)}, ok {tuple(ok.shape)}, table "
             f"{tuple(agg_table.shape)}, p0 {tuple(p0.shape)} do not fit L={L}")
-    out = torch.empty((K,), dtype=dt, device=dev)
+    out = torch.empty(lead + (K,), dtype=dt, device=dev)
     if K == 0:
         return out
     use_smem = prefix_devs_layout(Wy, nyb, L, y.element_size())
+    # a lane's scratch: z where it is not in shared memory, then the
+    # moments of the lags past the block's threads (csrc/prefix_devs.cu)
     n_scratch = (0 if use_smem else nyb + 2 * L + Wy) \
         + 10 * max(L - _PREFIX_THREADS, 0)
-    scratch = torch.empty((max(n_scratch, 1),), dtype=dt, device=dev)
-    fn = _build.bind("prefix_devs", _PREFIX_SYMBOL[dt], 10, 7)
+    scratch = torch.empty((max(B * n_scratch, 1),), dtype=dt, device=dev)
+    fn = _build.bind("prefix_devs", _PREFIX_SYMBOL[dt], 10, 8)
     _build.check(fn(y.data_ptr(), dyws.data_ptr(), ystarts.data_ptr(),
                     ok.data_ptr(), agg_table.data_ptr(), p0.data_ptr(),
                     ny.data_ptr(), eps.data_ptr(), out.data_ptr(),
                     scratch.data_ptr(), K, Wy, nyb, L, MEASURE_CODE[measure],
-                    int(greedy), int(use_smem),
+                    int(greedy), int(use_smem), B,
                     torch.cuda.current_stream(dev).cuda_stream),
                  "prefix_devs")
     prefix_devs_cuda.launches += 1

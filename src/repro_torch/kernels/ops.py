@@ -5,9 +5,9 @@ products, Algorithm-2 single-delta impacts (Eq. 8), exact windowed impacts
 
 Backends, chosen per call and plumbed from ``CameoConfig.backend``:
 
-* ``"cuda"``      — the hand-written kernels (``lag_dot``, ``acf_impact``,
-  ``acf_window_impact``, ``fused_round.window_rows_cuda`` and
-  ``fused_round.prefix_devs_cuda``).  Asking for it with CPU tensors
+* ``"cuda"``      — the hand-written kernels (``lag_dot``, ``prefix_sum``,
+  ``acf_impact``, ``acf_window_impact``, ``fused_round.window_rows_cuda``
+  and ``fused_round.prefix_devs_cuda``).  Asking for it with CPU tensors
   raises.
 * ``"reference"`` — the plain PyTorch forms, on whatever device the
   tensors lie.
@@ -33,6 +33,7 @@ from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.acf_impact import acf_impact_cuda
 from repro_torch.kernels.acf_window_impact import acf_window_impact_cuda
 from repro_torch.kernels.lag_dot import lag_dot_cuda, lag_dot_plain
+from repro_torch.kernels.prefix_sum import prefix_sum_cuda, prefix_sum_plain
 
 BACKENDS = ("auto", "cuda", "reference")
 
@@ -95,6 +96,15 @@ def lag_dot(a: torch.Tensor, L: int, *, b=None, halo=None,
     if resolve_backend(backend, a.device) == "cuda":
         return lag_dot_cuda(a, b, halo, L=L)
     return lag_dot_plain(a, b, halo, L=L)
+
+
+def prefix_sum(x: torch.Tensor, backend: str = "auto") -> torch.Tensor:
+    """Inclusive prefix sums of ``x [..., n]`` over the last axis, left to
+    right in float64 (the kernel on the card, ``torch.cumsum`` on the CPU:
+    the same bits, whatever the rows beside a row)."""
+    if resolve_backend(backend, x.device) == "cuda":
+        return prefix_sum_cuda(x)
+    return prefix_sum_plain(x)
 
 
 # ---------------------------------------------------------------------------

@@ -2,11 +2,15 @@
 ``repro/kernels/ref.py``) — the single source of the formulas and the
 oracles of the hand-written kernels.
 
-Aggregate arguments are any structure indexable as five per-lag ``[L]``
-rows ``(sx, sxl, sx2, sxl2, sxx)``: the ``core.acf.Aggregates`` tuple or
-the packed ``[5, L]`` table.  ``ny`` arguments may be Python ints or
-0-d integer tensors (the rounds mode keeps the valid length on the
-device).
+Aggregate arguments are the five per-lag rows ``(sx, sxl, sx2, sxl2,
+sxx)``: the ``core.acf.Aggregates`` tuple or the packed ``[5, L]`` table.
+``ny`` arguments may be Python ints or 0-d integer tensors (the rounds
+mode keeps the valid length on the device).
+
+Lanes.  A batch of series (``compress_batch``) carries a leading lane
+axis: series ``[B, n]``, tables ``[B, 5, L]``, ``ny`` ``[B]``.  The
+functions here that the rounds mode calls take it, and compute each lane
+exactly as they compute the lane alone.
 """
 from __future__ import annotations
 
@@ -16,13 +20,48 @@ import torch.nn.functional as F
 KERNEL_MEASURES = ("mae", "rmse", "cheb")
 
 
+def take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``x[..., idx]`` lane by lane along the last axis.
+
+    A 1-D ``x`` takes any index shape (``x[idx]``).  For ``x [*lanes, n]``
+    a 1-D ``idx`` is one row of indices for every lane; otherwise the
+    leading dimensions of ``idx`` are the lanes' (size 1 broadcasts) and
+    the rest index each lane.
+    """
+    if x.dim() == 1:
+        return x[idx]
+    if x.dim() == 2 and x.shape[0] == 1:    # one lane: plain indexing
+        out = x[0][idx]
+        return out[None] if idx.dim() == 1 else out
+    lead = x.shape[:-1]
+    if idx.shape[:-1] == lead:              # one index row a lane
+        return torch.gather(x, -1, idx.long())
+    if idx.dim() == 1:                      # one row for every lane
+        return torch.gather(x, -1, idx.long().expand(*lead, -1))
+    rest = idx.shape[len(lead):]
+    flat = idx.expand(*lead, *rest).reshape(*lead, -1)
+    return torch.gather(x, -1, flat.long()).reshape(*lead, *rest)
+
+
+def lane_col(v, x: torch.Tensor):
+    """A per-lane scalar ``v`` (Python number, 0-d or ``[*lanes]``) shaped
+    to broadcast against the last axis of ``x [*lanes, n]``; unchanged for
+    a 1-D ``x``."""
+    if x.dim() == 1:
+        return v
+    v = torch.as_tensor(v, device=x.device)
+    if v.dim() == 0:
+        return v.reshape((1,) * x.dim())
+    return v.reshape(*v.shape, *((1,) * (x.dim() - v.dim())))
+
+
 def gather_clamped(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """``x[idx]`` along the first axis with JAX's gather index rule:
+    """``x[..., idx]`` (see :func:`take`) with JAX's gather index rule:
     negative indices wrap once (``idx + n``), then every index is clamped
     into ``[0, n)``."""
-    n = x.shape[0]
+    n = x.shape[-1]
     idx = torch.where(idx < 0, idx + n, idx)
-    return x[idx.clamp(0, n - 1)]
+    return take(x, idx.clamp(0, n - 1))
 
 
 def acf_from_moments(sx, sxl, sx2, sxl2, sxx, m):
@@ -80,9 +119,10 @@ def div_exact(x: torch.Tensor, k: int) -> torch.Tensor:
 
 def measure_rows(rows: torch.Tensor, p0: torch.Tensor,
                  measure: str) -> torch.Tensor:
-    """Kernel-supported deviation measures over ``[..., L]`` ACF rows
-    (lag sums in order, see :func:`sum_in_order`)."""
-    diff = rows - p0[None, :]
+    """Kernel-supported deviation measures over ``[..., K, L]`` ACF rows
+    against ``p0 [..., L]`` (lag sums in order, see
+    :func:`sum_in_order`)."""
+    diff = rows - p0.unsqueeze(-2)
     L = diff.shape[-1]
     if measure == "mae":
         return div_exact(sum_in_order(torch.abs(diff)), L)
@@ -94,10 +134,19 @@ def measure_rows(rows: torch.Tensor, p0: torch.Tensor,
 
 
 def as_table(agg) -> torch.Tensor:
-    """The packed ``[5, L]`` moment table for any aggregate structure."""
+    """The packed ``[..., 5, L]`` moment table for any aggregate
+    structure."""
     if isinstance(agg, torch.Tensor):
         return agg
-    return torch.stack([agg[0], agg[1], agg[2], agg[3], agg[4]])
+    return torch.stack([agg[0], agg[1], agg[2], agg[3], agg[4]], dim=-2)
+
+
+def agg_rows(agg) -> tuple:
+    """The five per-lag rows ``[..., L]`` of a table or an
+    ``Aggregates`` tuple."""
+    if isinstance(agg, torch.Tensor):
+        return tuple(agg[..., q, :] for q in range(5))
+    return tuple(agg[:5])
 
 
 def acf_from_table(rows: torch.Tensor, m) -> torch.Tensor:
@@ -113,33 +162,36 @@ def acf_from_table(rows: torch.Tensor, m) -> torch.Tensor:
 def acf_after_single_delta(agg, y: torch.Tensor, idx: torch.Tensor,
                            dval: torch.Tensor, *, ny=None) -> torch.Tensor:
     """Hypothetical ACF (Eq. 8) after adding ``dval[p]`` at ``idx[p]``,
-    independently for each p.  Returns ``[P, L]``.
+    independently for each p.  Returns ``[P, L]``, or ``[B, P, L]`` for
+    lanes (``y [B, nyb]``, ``idx`` and ``dval [B, P]``, ``agg [B, 5, L]``,
+    ``ny [B]``).
 
     ``ny`` overrides the valid length when ``y`` lives in a zero-padded
     bucket.
     """
     if ny is None:
-        ny = y.shape[0]
-    L = agg[0].shape[-1]
+        ny = y.shape[-1]
+    rows = agg_rows(agg)
+    L = rows[0].shape[-1]
     dtype = y.dtype
-    head, tail = head_tail_masks(idx, ny, L, dtype)        # [P, L]
+    nyc = lane_col(ny, idx[..., None])                     # per lane
+    head, tail = head_tail_masks(idx, nyc, L, dtype)       # [.., P, L]
     l = torch.arange(1, L + 1, device=y.device)
     y_pad = F.pad(y, (L, L))
-    y_fwd = gather_clamped(y_pad, (idx + L)[:, None] + l[None, :])
-    y_bwd = gather_clamped(y_pad, (idx + L)[:, None] - l[None, :])
-    y_at = gather_clamped(y, idx)                          # [P]
+    y_fwd = gather_clamped(y_pad, (idx + L)[..., None] + l)
+    y_bwd = gather_clamped(y_pad, (idx + L)[..., None] - l)
+    y_at = gather_clamped(y, idx)                          # [.., P]
 
-    d = dval[:, None]                                      # [P, 1]
-    e = (dval * (2.0 * y_at + dval))[:, None]              # [P, 1]
+    d = dval[..., None]                                    # [.., P, 1]
+    e = (dval * (2.0 * y_at + dval))[..., None]            # [.., P, 1]
 
-    tab = as_table(agg)
-    sx = tab[0][None, :] + d * head
-    sxl = tab[1][None, :] + d * tail
-    sx2 = tab[2][None, :] + e * head
-    sxl2 = tab[3][None, :] + e * tail
-    sxx = tab[4][None, :] + d * (y_fwd * head + y_bwd * tail)
+    sx = rows[0].unsqueeze(-2) + d * head
+    sxl = rows[1].unsqueeze(-2) + d * tail
+    sx2 = rows[2].unsqueeze(-2) + e * head
+    sxl2 = rows[3].unsqueeze(-2) + e * tail
+    sxx = rows[4].unsqueeze(-2) + d * (y_fwd * head + y_bwd * tail)
 
-    m = (ny - l).to(dtype)[None, :]
+    m = (nyc - l).to(dtype)
     return acf_from_moments(sx, sxl, sx2, sxl2, sxx, m)
 
 
@@ -247,14 +299,17 @@ def acf_window_impact_ref(y_rows, dwins, starts_abs, agg_table, p0, *,
 
 def lag_xdot(a: torch.Tensor, b_ext: torch.Tensor, *, L: int) -> torch.Tensor:
     """``out[l-1] = sum_{t < m} a[t] * b_ext[t + l]`` for l in 1..L, as one
-    ``[m] x [m, L]`` product against a shift view of ``b_ext``.
+    ``[m] x [m, L]`` product against a shift view of ``b_ext`` (a batched
+    product for lanes ``a [B, m]``, ``b_ext [B, m + L]``).
 
     ``b_ext`` has length ``m + L`` (the caller appends an L-point halo —
     zeros for a plain series, the next chunk's head for partitioned work).
     """
-    m = a.shape[0]
-    shifted = b_ext.unfold(0, L, 1)[1:m + 1]               # [m, L]
-    return a @ shifted
+    m = a.shape[-1]
+    shifted = b_ext.unfold(-1, L, 1)[..., 1:m + 1, :]      # [..., m, L]
+    if a.dim() == 1:
+        return a @ shifted
+    return (a.unsqueeze(-2) @ shifted).squeeze(-2)
 
 
 def lag_xdot_ref(a: torch.Tensor, b_ext: torch.Tensor, *,

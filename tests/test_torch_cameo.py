@@ -209,11 +209,11 @@ def port_round(rank, kappa, carry_np, p0):
     x, jcfg, n, nb, min_alive, eps = _round_setup(rank, kappa)
     tcfg = convert.config_from_dict(dataclasses.asdict(jcfg))
     probe, body = tc._round_fns(
-        tcfg, nb, torch.tensor(n, dtype=torch.int32),
-        torch.tensor(min_alive, dtype=torch.int32),
-        torch.tensor(eps, dtype=torch.float64), torch.from_numpy(p0))
+        tcfg, nb, torch.tensor([n], dtype=torch.int32),
+        torch.tensor([min_alive], dtype=torch.int32),
+        torch.tensor([eps], dtype=torch.float64), torch.from_numpy(p0)[None])
     carry = convert.carry_from_numpy(carry_np, "cpu")
-    go, small = probe(carry).tolist()
+    ((go, small),) = probe(carry).tolist()
     assert go
     return convert.carry_to_numpy(body(carry, small=small))
 
@@ -273,15 +273,20 @@ def test_decompress_without_device_needs_cuda(monkeypatch):
 
 
 def test_unported_surfaces_raise():
-    """compress_batch is not ported yet; the sequential mode and
-    select="scan" are, and run."""
+    """compress_batch over a device mesh is not ported yet (ROADMAP A7);
+    the sequential mode, select="scan" and compress_batch on one device
+    are, and run."""
     x = _series(128)
     for cfg in (tc.CameoConfig(mode="sequential", lags=8),
                 tc.CameoConfig(select="scan", lags=8)):
         res = tc.compress(x, cfg, device="cpu")
         assert res.kept.shape == (128,) and bool(res.kept[0] & res.kept[-1])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tc.compress_batch(np.stack([x, x]), tc.CameoConfig())
+    with pytest.raises(NotImplementedError, match="ROADMAP.*A7"):
+        tc.compress_batch(np.stack([x, x]), tc.CameoConfig(), mesh=object(),
+                          device="cpu")
+    res = tc.compress_batch(np.stack([x, x]), tc.CameoConfig(lags=8),
+                            device="cpu")
+    assert res.kept.shape == (2, 128) and bool(res.kept[:, [0, -1]].all())
 
 
 def test_port_and_chip_smoke_import_no_jax():
@@ -313,8 +318,8 @@ def test_config_and_carry_convert():
     assert tcfg.backend == "cuda" and tcfg.kappa == 4 and tcfg.lags == 7
     assert dataclasses.asdict(tcfg) == {**dataclasses.asdict(jcfg),
                                         "backend": "cuda"}
-    carry, _ = tc._rounds_init(torch.from_numpy(_series(64)),
-                               torch.tensor(60, dtype=torch.int32),
+    carry, _ = tc._rounds_init(torch.from_numpy(_series(64))[None],
+                               torch.tensor([60], dtype=torch.int32),
                                dataclasses.replace(tcfg, backend="reference"))
     arrays = convert.carry_to_numpy(carry)
     back = convert.carry_to_numpy(convert.carry_from_numpy(arrays, "cpu"))
@@ -322,9 +327,16 @@ def test_config_and_carry_convert():
         np.float64, np.bool_, np.int32, np.int32, np.float64, np.float64,
         np.float64, np.float64, np.int32, np.bool_, np.bool_, np.bool_,
         np.bool_]
+    assert arrays[0].shape == (64,) and arrays[5].shape == (5, 7)
     for a, b in zip(arrays, back):
         assert a.dtype == b.dtype
         np.testing.assert_array_equal(a, b)
+    # a batched carry crosses with its lane axis
+    lanes = convert.carry_to_numpy(carry, batched=True)
+    assert lanes[0].shape == (1, 64) and lanes[8].shape == (1,)
+    again = convert.carry_from_numpy(lanes, "cpu", batched=True)
+    for a, b in zip(carry, again):
+        assert torch.equal(a, b)
 
 
 def test_kept_points_decompress_roundtrip():
@@ -346,14 +358,25 @@ def test_chip_smoke_phases_rehearsal():
     import chip_smoke
     report = chip_smoke.run_phases(
         "cpu", uk_length=512, aus_length=48 * 48,
-        seq_lengths={"uk_elec": 256, "aus_elec": 48 * 12}, log=lambda s: None)
+        seq_lengths={"uk_elec": 256, "aus_elec": 48 * 12},
+        batches=(("uk_elec", 3, True), ("aus_elec", 2, True),
+                 ("uk_elec", 4, False)),
+        kernel_lanes={"uk_elec": 3, "aus_elec": 2}, prefix_lanes=2,
+        mv_columns=2, log=lambda s: None)
     # the window kernels: the main cases, then a boundary-heavy one each
-    # (acf_window_impact's ranking chunk at kappa = 1 only)
+    # (acf_window_impact's ranking chunk at kappa = 1 only); then the five
+    # kernels of the rounds path on lanes (prefix_devs at uk_elec only)
     assert [(k["dataset"], k["name"]) for k in report["kernels"]] == [
         (d, k) for d in ("uk_elec", "aus_elec")
-        for k in ("lag_dot", "acf_impact", "window_rows", "window_rows")
+        for k in ("lag_dot", "prefix_sum", "acf_impact", "window_rows",
+                  "window_rows")
         + ("acf_window_impact",) * (3 if d == "uk_elec" else 2)
-        + ("acf_impact", "prefix_devs", "prefix_devs")]
+        + ("acf_impact", "prefix_devs", "prefix_devs")] + [
+        (d, k) for d in ("uk_elec", "aus_elec")
+        for k in ("lag_dot", "prefix_sum", "acf_impact", "window_rows")
+        + (("prefix_devs",) if d == "uk_elec" else ())]
+    assert [k["lanes"] for k in report["kernels"] if "lanes" in k] == \
+        [3] * 4 + [2] * 5
     assert all(k["max_abs_err"] == 0.0 for k in report["kernels"])
     edge = [k for k in report["kernels"] if "boundary-heavy" in k["shape"]]
     assert [k["name"] for k in edge] == ["window_rows",
@@ -362,14 +385,23 @@ def test_chip_smoke_phases_rehearsal():
     assert report["launch_floor_ms"] is None
     # prefix_devs: a random walk, then the scan's real round 3 (the card's
     # greedy branch, dispatched as on the card)
-    pd = [k for k in report["kernels"] if k["name"] == "prefix_devs"]
+    pd = [k for k in report["kernels"] if k["name"] == "prefix_devs"
+          and "lanes" not in k]
     assert [k["shape"].split(":")[0] for k in pd] == ["random",
                                                       "real round 3"] * 2
     assert all(0 < k["ok"] <= k["K"] and k["interior"] <= k["ok"]
                for k in pd)
     rows = chip_smoke.kernel_rows(report)
     assert [r["name"] for r in rows] == list(chip_smoke.WRAPPERS)
-    assert [len(r["shapes"]) for r in rows] == [2, 4, 4, 5, 4]
+    assert [len(r["shapes"]) for r in rows] == [4, 6, 6, 5, 5, 4]
+    # the batch phase: each lane held against its per-series run, and the
+    # multivariate run's columns on one shared index
+    bt = report["batches"]
+    assert [(r["path"], r["dataset"], r.get("B")) for r in bt] == [
+        ("batch", "uk_elec", 3), ("batch", "aus_elec", 2),
+        ("batch", "uk_elec", 4), ("multivariate", "uk_elec", None)]
+    assert [r.get("lanes_held") for r in bt[:3]] == [3, 2, None]
+    assert bt[3]["C"] == 2 and len(bt[3]["deviations"]) == 2
     div = chip_smoke.first_divergence("cpu", length=48 * 48)
     assert div["parted"] is None and div["init"] == {}
     assert div["lockstep_rounds_differing"] == 0

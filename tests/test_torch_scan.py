@@ -505,11 +505,11 @@ def _port_round(name, carry_np, p0):
     min_alive, eps = jc._halting_params(n, jcfg)
     tcfg = convert.config_from_dict(dataclasses.asdict(jcfg))
     probe, body = tc._round_fns(
-        tcfg, nb, torch.tensor(n, dtype=torch.int32),
-        torch.tensor(min_alive, dtype=torch.int32),
-        torch.tensor(eps, dtype=torch.float64), T(p0))
+        tcfg, nb, torch.tensor([n], dtype=torch.int32),
+        torch.tensor([min_alive], dtype=torch.int32),
+        torch.tensor([eps], dtype=torch.float64), T(p0)[None])
     carry = convert.carry_from_numpy(carry_np, "cpu")
-    go, small = probe(carry).tolist()
+    ((go, small),) = probe(carry).tolist()
     assert go
     return convert.carry_to_numpy(body(carry, small=small))
 

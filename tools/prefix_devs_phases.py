@@ -141,7 +141,7 @@ def main() -> int:
     src.write_text(instrument((CSRC / "prefix_devs.cu").read_text()))
     lib = nvcc(src, OUT / "libprefix_devs_phases.so")
     fn = lib.prefix_devs_f64
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
     lib.phases_read.argtypes = [ctypes.c_void_p]
     for name in chip_smoke.DATASETS:
         cap = chip_smoke.capture_round(dev, name)
@@ -154,7 +154,7 @@ def main() -> int:
         scratch = torch.empty(1 if use_smem else nyb + 2 * L + Wy,
                               dtype=torch.float64, device=dev)
         rc = fn(*[t.data_ptr() for t in a], out.data_ptr(),
-                scratch.data_ptr(), K, Wy, nyb, L, 0, 1, int(use_smem),
+                scratch.data_ptr(), K, Wy, nyb, L, 0, 1, int(use_smem), 1,
                 torch.cuda.current_stream(dev).cuda_stream)
         torch.cuda.synchronize()
         if rc != 0:

@@ -199,6 +199,19 @@ def _clone(v):
     return v.clone() if isinstance(v, torch.Tensor) else v
 
 
+def _one_series(kname: str, a: tuple, kw: dict, res):
+    """A one-lane launch of the rounds path (``[1, ...]`` operands, as
+    ``compress_rounds`` makes them) as the same launch on one series, so
+    the wrappers of a tree from before the lane axis replay it too."""
+    if kname == "acf_window_impact" or a[0].dim() != 2 or a[0].shape[0] != 1:
+        return a, kw, res
+
+    def one(t):
+        return t[0] if isinstance(t, torch.Tensor) and t.dim() >= 2 else t
+    return (tuple(one(t) for t in a), {k: one(v) for k, v in kw.items()},
+            res[0])
+
+
 # kernel -> the recorder standing in for its wrapper during a run
 recording_of: dict = {}
 
@@ -221,6 +234,8 @@ def record_runs(device, stems) -> list:
                 # module names it by its own attribute, on this recorder
                 _w.launches = recording_of[_k].launches = max(
                     _w.launches, recording_of[_k].launches)
+                out = res
+                a, kw, res = _one_series(_k, a, kw, res)
                 rec = dict(args=tuple(_clone(t) for t in a),
                            kw={k: _clone(v) for k, v in kw.items()},
                            out=res.clone())
@@ -231,7 +246,7 @@ def record_runs(device, stems) -> list:
                         starts, W, kw["L"], ny).sum()
                     rec["n"] = starts.numel()
                 got[_k].append(rec)
-                return res
+                return out
             recording.launches = wrapper.launches
             recording_of[kname] = recording
             for mod, attr in CALLERS[kname]:
