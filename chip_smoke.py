@@ -28,12 +28,15 @@ Phases, each of which fails the run (non-zero exit) on a wrong result:
    two Eq. 9 window kernels are held exactly too, also on a
    boundary-heavy case each (every start within L + W of either end,
    with its interior count); prefix_sum (the Eq. 7 moments' and the dense
-   update's prefix sums) held exactly to torch.cumsum on the CPU, which
-   sums in its order; and an empty kernel, built and bound as the others,
-   timed as the launch floor.  Then the kernels of the rounds path with a
-   lane axis, one launch for a batch (uk_elec B = 16, aus_elec B = 4;
-   lag_dot's self and cross forms, prefix_sum, acf_impact, window_rows;
-   prefix_devs 2 lanes of uk_elec's random walk): each against its plain
+   update's prefix sums: one row, the pair of rows the main path launches,
+   and pairs of 1, 17, 4,097 and 65,537 values) held exactly to its plain
+   version on the CPU (XLA's cumsum order, jnp.cumsum's bits) and timed
+   beside torch.cumsum on the card; and an empty kernel, built and bound as
+   the others, timed as the launch floor.  Then the kernels of the rounds
+   path with a lane axis, one launch for a batch (uk_elec B = 16, aus_elec
+   B = 4; lag_dot's self and cross forms, prefix_sum (the lanes' pairs of
+   rows), acf_impact, window_rows; prefix_devs 2 lanes of uk_elec's random
+   walk): each against its plain
    version at its tolerance and, lane by lane, bit for bit against its
    one-lane launch;
 4. main paths — ``compress()`` on the card with, for each run, every
@@ -54,19 +57,15 @@ Phases, each of which fails the run (non-zero exit) on a wrong result:
    uk_elec-shaped ``[17,520, 4]``; every lane and column passes the
    guarantee checks above, and a round launches acf_impact at most twice
    and window_rows at most 2 x 2 times (two lane groups), whatever B;
-5. diagnostics — a lock-step scan round on uk_elec (from one carry on the
-   card, the greedy branch with the prefix_devs kernel and with its plain
-   version must take the same candidates), torch.profiler breakdowns of
-   the uk_elec rounds run, both scan runs, the uk_elec batch at B = 16
-   and 256 pops of the uk_elec sequential run at 4,096 points
-   (``chiprun_out/profile_<dataset>_<path>.txt``: each hand kernel's
-   device time a round or a pop, the launches a round or a pop, the
-   card's idle share and the ok ranks the prefix walks take a round), and
-   the round
-   where aus_elec's card run parts from its CPU run with what differs
-   there (``chiprun_out/diverge_aus_elec.json``); then a
-   ``{"kernels": [...]}`` line;
+5. the lock-step check — a scan round on uk_elec from one carry on the
+   card: the greedy branch with the prefix_devs kernel and with its plain
+   version must take the same candidates; then the seconds of each phase
+   and a ``{"kernels": [...]}`` line;
 6. the last line, ``{"ok": true, "device": {...}}``.
+
+The torch.profiler breakdowns of the main paths and the pass that finds
+where aus_elec's card run parts from its CPU run are in
+``tools/profile_paths.py``.
 
 It imports nothing of JAX or of the JAX package.  ``run_phases`` is the
 same sequence for any device and size; the CPU tests rehearse it on tiny
@@ -92,8 +91,6 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch.core import cameo  # noqa: E402
 from repro_torch.core.acf import (acf_from_aggregates, aggregate_series,  # noqa: E402
                                   extract_aggregates)
-from repro_torch.core.aggregates import (interpolate_at,  # noqa: E402
-                                         segment_deltas)
 from repro_torch.data.synthetic import (dataset_cameo_kwargs,  # noqa: E402
                                         make_dataset)
 from repro_torch.kernels import _build  # noqa: E402
@@ -128,7 +125,8 @@ REPLACES = {"lag_dot": "src/repro/kernels/lag_dot.py:42",
             "window_rows": "src/repro/kernels/fused_round.py:276",
             "acf_window_impact": "src/repro/kernels/acf_window_impact.py:77",
             "prefix_devs": "src/repro/kernels/fused_round.py:382",
-            # an XLA cumsum on the TPU (no Pallas kernel)
+            # XLA's jnp.cumsum, no Pallas kernel: aggregates.py:71,73 and
+            # acf.py:52-53,77-78
             "prefix_sum": "src/repro/core/aggregates.py:71"}
 # Each output is held to its plain version elementwise: |got - want| <=
 # rtol |want| + floor max|want|.  The floor scales with the output, so an
@@ -137,8 +135,8 @@ REPLACES = {"lag_dot": "src/repro/kernels/lag_dot.py:42",
 # and sums in its order, so it is held exactly: the rankings and the scan's
 # decisions depend on every bit.  lag_dot's float64 sums run in another
 # order than the plain version's matmul: 1e-10.  prefix_sum is held
-# exactly to torch.cumsum on the CPU, which sums in its order (on the card
-# torch.cumsum's order differs).
+# exactly to its plain version on the CPU: both take XLA's cumsum order
+# (torch.cumsum's order is another, on the card and on the CPU).
 TOL = {"lag_dot": (1e-10, 1e-10), "acf_impact": (0.0, 0.0),
        "window_rows": (0.0, 0.0), "acf_window_impact": (0.0, 0.0),
        "prefix_devs": (0.0, 0.0), "prefix_sum": (0.0, 0.0)}
@@ -169,10 +167,6 @@ MV_COLUMNS = 4
 # each lane's 1,843 ranks one op at a time, ~3.6 s a lane on the card)
 KERNEL_LANES = {"uk_elec": 16, "aus_elec": 4}
 PREFIX_LANES = 2
-# lanes of the profiled compress_batch run (uk_elec)
-PROFILE_LANES = 16
-# rounds the divergence pass steps past the round where the free runs part
-DIVERGE_PAST = 10
 # window_rows launches a round body makes (tiers B and C); a round launches
 # acf_impact once and window_rows TIERS times for each of its (at most two)
 # lane groups, whatever the lanes
@@ -284,27 +278,38 @@ def kernel_inputs(device, name: str, length=None, seed: int = 0):
     return cfg, n, nb, ny, y64, table, p0, dval
 
 
-def prefix_sum_entry(device, name: str, x: torch.Tensor) -> dict:
-    """prefix_sum on the rows of ``x`` (``[n]``, or ``[B, n]`` lanes in one
-    launch) against its plain version, torch.cumsum, on the CPU (its order)
-    at tolerance 0, and lanes against their one-lane launches; timed
-    against torch.cumsum on the card (the plain version and the library
-    call at once)."""
-    B = x.shape[0] if x.dim() == 2 else None
-    what = f"{name} prefix_sum" + (f" B={B}" if B else "")
+def prefix_sum_entry(device, name: str, x: torch.Tensor, lanes=None) -> dict:
+    """prefix_sum on the rows of ``x`` (``[..., n]``, one launch) against its
+    plain version on the CPU at tolerance 0, each leading index (a lane, or
+    a row of a pair) against its own launch; timed beside its plain version
+    and torch.cumsum on the card.  ``lanes``: the batch this launch serves,
+    recorded on the entry."""
+    rows = x.numel() // x.shape[-1]
+    what = f"{name} prefix_sum {list(x.shape)}"
     got = _prefix_sum.prefix_sum_cuda(x)
     err = check_close(what, "prefix_sum", got, _prefix_sum.prefix_sum_plain(
         x.cpu()).to(x.device))
-    if B:
+    if x.dim() > 1:
         require_lanes(what, got, lambda b: _prefix_sum.prefix_sum_cuda(x[b]))
-    cumsum_ms = device_ms(lambda: _prefix_sum.prefix_sum_plain(x), device)
-    bnd, by = bound_ms(2 * 8 * x.numel(), float(x.numel()), FP64_FLOPS)
-    return dict(name="prefix_sum",
-                shape=(f"B={B} lanes x " if B else "") + f"n={x.shape[-1]} "
-                      f"float64", max_abs_err=err,
+    bnd, by = bound_ms(2 * x.element_size() * x.numel(), float(x.numel()),
+                       FP64_FLOPS if x.dtype == torch.float64 else FP32_FLOPS)
+    per = rows // (lanes or 1)
+    shape = (f"B={lanes} lanes x " if lanes else "") + \
+        f"{per} row{'s' if per > 1 else ''} x n={x.shape[-1]} " \
+        f"{str(x.dtype)[6:]}"
+    return dict(name="prefix_sum", shape=shape, max_abs_err=err,
                 ms=device_ms(lambda: _prefix_sum.prefix_sum_cuda(x), device),
-                plain_ms=cumsum_ms, library_ms=cumsum_ms, bound_ms=bnd,
-                bound_by=by, **({"lanes": B} if B else {}))
+                plain_ms=device_ms(lambda: _prefix_sum.prefix_sum_plain(x),
+                                   device),
+                library_ms=device_ms(lambda: torch.cumsum(x, dim=-1), device),
+                bound_ms=bnd, bound_by=by,
+                **({"lanes": lanes} if lanes else {}))
+
+
+# lengths of prefix_sum's pairs of rows off the datasets' shapes: one value,
+# one group past XLA's 16, one value past a 4,096-value tile, and 17 tiles
+# (a cluster of 8 blocks, levels above the tiles)
+PREFIX_SUM_LENGTHS = (1, 17, 4097, 65537)
 
 
 def phase_kernels(device, name: str, length=None) -> list:
@@ -342,9 +347,17 @@ def phase_kernels(device, name: str, length=None) -> list:
         plain_ms=device_ms(lambda: _lag_dot.lag_dot_plain(y64, L=L), device),
         library_ms=device_ms(conv, device), bound_ms=bnd, bound_by=by))
 
-    # prefix_sum: the Eq. 7 moments' prefix sums at init (the dense update
-    # sums rows of the same length every round), float64
+    # prefix_sum, float64: one row of y, then the pair one launch takes on
+    # the main path (y and y^2 for the Eq. 7 moments at init; the dense
+    # update's delta and e, of the same length, every round); off the
+    # datasets' shapes, pairs of PREFIX_SUM_LENGTHS (with uk_elec)
     out.append(prefix_sum_entry(device, name, y64))
+    out.append(prefix_sum_entry(device, name, torch.stack([y64, y64 * y64])))
+    if name == DATASETS[0]:
+        rng = np.random.default_rng(5)
+        for n in PREFIX_SUM_LENGTHS:
+            out.append(prefix_sum_entry(device, name, torch.from_numpy(
+                rng.standard_normal((2, n))).to(device)))
 
     # acf_impact: Eq. 8 impacts of every point, float32 (the rounds), and
     # float64 (the sequential init)
@@ -749,8 +762,9 @@ def phase_kernels_lanes(device, name: str, B: int, length=None,
                   lambda b: _lag_dot.lag_dot_cuda(
                       y64[b:b + 1], other[b:b + 1], L=L)[0])
 
-    # prefix_sum, the dense update's prefix sums of every lane
-    out.append(prefix_sum_entry(device, name, y64))
+    # prefix_sum, the dense update's pair of rows of every lane: [B, 2, nyb]
+    out.append(prefix_sum_entry(device, name,
+                                torch.stack([y64, y64 * y64], dim=-2), B))
 
     # acf_impact, the rounds' float32 impacts of every point
     args = (y64.float(), dval.float(), table.float(), p0.float())
@@ -1160,283 +1174,6 @@ def scan_lockstep(device, name: str = "uk_elec", rounds: int = 3) -> dict:
                 carries_equal=same)
 
 
-def _profiled_sequential(device, name: str, length: int, pops: int):
-    """A sequential run of ``name`` at ``length`` points stepped past its
-    first block of pops, then ``pops`` more under torch.profiler, in blocks
-    of 128 with the host's one condition read after each, as
-    compress_sequential drives them.  Returns (profiler, wall s, pops)."""
-    from torch.profiler import ProfilerActivity, profile
-    cfg, _, _ = _path_cfg(name, "sequential")
-    x = torch.from_numpy(make_dataset(name, seed=0, length=length)).to(device)
-    carry, p0 = cameo._sequential_init(x, cfg)
-    probe, body = cameo._sequential_fns(cfg, x.shape[0], p0)
-    block = cameo._SEQ_BLOCK
-    for _ in range(block):
-        carry = body(carry)
-    it0 = int(carry[8])
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(pops // block):
-            for _ in range(block):
-                carry = body(carry)
-            require(bool(probe(carry)),
-                    f"{name} sequential ended inside the profiled pops")
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    return prof, wall, int(carry[8]) - it0
-
-
-def profile_main(device, name: str = "uk_elec", path: str = "rounds",
-                 length=None, pops: int = 256) -> dict:
-    """torch.profiler breakdown of one main-path run (rounds and scan: a
-    whole run; sequential: ``pops`` pops of a run at ``length`` points;
-    batch: ``compress_batch`` of ``PROFILE_LANES`` series): the card's
-    busy time by kernel, each hand kernel's device time and launches an
-    iteration (a round, of the slowest lane for a batch, or a pop), the
-    idle share, and for the scan the ranks and ok ranks the prefix walks
-    take a round; written under chiprun_out/."""
-    from torch.profiler import ProfilerActivity, profile
-    walks = []
-    if path == "sequential":
-        prof, wall, iters = _profiled_sequential(device, name, length, pops)
-    elif path == "batch":
-        cfg = cameo.CameoConfig(eps=EPS, **dataset_cameo_kwargs(name))
-        xs = batch_series(name, PROFILE_LANES, length)
-        cameo.compress_batch(xs, cfg, device=device)        # warm
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            res = cameo.compress_batch(xs, cfg, device=device)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        iters = int(res.iters.max())
-    else:
-        cfg, _, _ = _path_cfg(name, path)
-        x = make_dataset(name, seed=0, length=length)
-        # warm, counting the ranks and the ok ranks of every prefix walk
-        # (the profiled run repeats the same rounds)
-        kernel = _fused.prefix_devs_cuda
-
-        def counting(*a, **kw):
-            walks.append((a[3].numel(), a[3].sum()))
-            return kernel(*a, **kw)
-        # the wrapper counts its launches on the name it is bound to
-        counting.launches = kernel.launches
-        _fused.prefix_devs_cuda = counting
-        try:
-            cameo.compress(x, cfg, device=device)
-        finally:
-            _fused.prefix_devs_cuda = kernel
-            kernel.launches = counting.launches
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            res = cameo.compress(x, cfg, device=device)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        iters = int(res.iters)
-    events = prof.key_averages()
-    sort_key = ("self_device_time_total"
-                if hasattr(events[0], "self_device_time_total")
-                else "self_cuda_time_total")
-    dev_us, dev_n = {}, {}
-    for ev in events:
-        t = float(getattr(ev, sort_key, 0.0) or 0.0)
-        if t and ev.device_type == torch.autograd.DeviceType.CUDA:
-            dev_us[ev.key] = dev_us.get(ev.key, 0.0) + t
-            dev_n[ev.key] = dev_n.get(ev.key, 0) + int(ev.count)
-    busy = sum(dev_us.values()) / 1e6
-    per = max(iters, 1)
-    hand = {}
-    for kname in WRAPPERS:
-        # the kernels sit in anonymous namespaces: "(anonymous
-        # namespace)::lag_dot_partials<double>(...)"
-        keys = [k for k in dev_us if f"::{kname}_" in k]
-        us = sum(dev_us[k] for k in keys)
-        if keys:
-            hand[kname] = dict(device_us=us,
-                               launches=sum(dev_n[k] for k in keys),
-                               device_us_per_iter=us / per,
-                               share_of_wall=us / 1e6 / wall)
-    hand_s = sum(h["device_us"] for h in hand.values()) / 1e6
-    out_dir = ROOT / "chiprun_out"
-    out_dir.mkdir(exist_ok=True)
-    (out_dir / f"profile_{name}_{path}.txt").write_text(
-        events.table(sort_by=sort_key, row_limit=80))
-    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:10]
-    out = dict(dataset=name, path=path,
-               lanes=PROFILE_LANES if path == "batch" else 1,
-               iter="pop" if path == "sequential" else "round",
-               iters=iters, wall_s=wall, host_s_per_iter=wall / per,
-               device_busy_s=busy, idle_share=1.0 - busy / wall,
-               device_launches=sum(dev_n.values()),
-               launches_per_iter=sum(dev_n.values()) / per,
-               hand_kernels_s=hand_s,
-               hand_kernel_share_of_busy=hand_s / busy if busy else None,
-               hand_kernels=hand,
-               top_kernels_us={k[:60]: v for k, v in top})
-    if path == "scan":
-        out.update(prefix_walks=len(walks),
-                   prefix_ranks_per_round=sum(k for k, _ in walks) / per,
-                   prefix_ok_ranks_per_round=sum(int(o) for _, o in walks)
-                   / per)
-    return out
-
-
-_CARRY_FIELDS = ("xr", "alive", "prev", "nxt", "y", "tbl", "alpha", "dev",
-                 "rounds", "done", "blocked", "retried", "saw_c")
-
-
-def _carry_diffs(a, b) -> dict:
-    """Fields of two rounds carries that differ: the count of differing
-    elements and, for float fields, the largest difference."""
-    out = {}
-    for name, u, v in zip(_CARRY_FIELDS, a, b):
-        u, v = u.cpu(), v.cpu()
-        ne = u != v
-        if bool(torch.any(ne)):
-            d = dict(n_differ=int(torch.sum(ne)))
-            if u.is_floating_point():
-                d["max_abs_diff"] = float(torch.max(torch.abs(u - v)))
-            out[name] = d
-    return out
-
-
-def _ranking_keys(carry, p0, cfg, n: int, points) -> dict:
-    """The float32 ranking keys of ``points`` in the round that starts from
-    ``carry``, formed as the rounds body forms them: Eq. 8 for span 1,
-    Eq. 9 for spans 2..W (a tier's capacity cut and the blocks are not
-    applied, and are reported beside the key)."""
-    xr, alive, prev, nxt, y, tbl = carry[:6]
-    blocked = carry[10]
-    dev = xr.device
-    L, kap, W, WB = cfg.lags, cfg.kappa, cfg.window, cameo._TIER_SMALL_W
-    ny = torch.full((), n // kap, dtype=torch.int32, device=dev)
-    yr, tr, pr = y.float(), tbl.float(), p0.to(dev).float()
-    idx = torch.arange(xr.shape[0], dtype=torch.int32, device=dev)
-    dx = interpolate_at(xr, prev, nxt, idx) - xr
-    dval = (dx if kap == 1 else _ref.div_exact(dx, kap)).float()
-    single = _acf_impact.acf_impact_cuda(yr, dval, tr, pr, L=L,
-                                         measure=cfg.measure, ny=ny,
-                                         kappa=kap)
-    out = {}
-    for i in points:
-        span = int(nxt[i] - prev[i] - 1)
-        key = float("inf")
-        if span == 1:
-            key = float(single[i])
-        elif span <= W:
-            cand = torch.tensor([i], dtype=torch.int32, device=dev)
-            dwin, start, _ = segment_deltas(xr, prev, nxt, cand,
-                                            WB if span <= WB else W)
-            dyw, ystart = _ops.x_window_to_y(cfg, dwin, start)
-            key = float(_fused.window_rows_cuda(
-                yr, dyw.float().contiguous(), ystart.contiguous(), tr, ny,
-                pr, L=L, measure=cfg.measure)[0])
-        out[int(i)] = dict(span=span, alive=bool(alive[i]),
-                           blocked=bool(blocked[i]), key=key)
-    return out
-
-
-def first_divergence(device, name: str = "aus_elec", length=None,
-                     keep: int = 5) -> dict:
-    """Where the card's run of ``name`` parts from the CPU path's.
-
-    Two comparisons in one pass over the rounds: the two free runs, each
-    from its own init, compared after every round until their kept masks
-    first differ; and a lock-step run, where every round starts the card
-    from the CPU path's carry (and p0), so a difference there is one the
-    card computes from equal inputs.  The pass ends with the CPU run or
-    ``DIVERGE_PAST`` rounds after the free runs part (``rounds_cpu`` counts
-    the rounds stepped).  Reports the init's differences, the free runs'
-    parting round and what differed in the state it started from, and the
-    first ``keep`` lock-step rounds that differ."""
-    device = torch.device(device)
-    cpu = torch.device("cpu")
-    cfg = cameo.CameoConfig(eps=EPS, **dataset_cameo_kwargs(name))
-    x = make_dataset(name, seed=0, length=length)
-    n = (x.shape[0] // cfg.kappa) * cfg.kappa
-    nb = cameo._round_bucket(n, cfg)
-    xp = F.pad(torch.from_numpy(x[:n]), (0, nb - n))
-    min_alive, eps = cameo._halting_params(n, cfg)
-
-    def setup(dev, p0=None):
-        nv = torch.full((1,), n, dtype=torch.int32, device=dev)
-        carry, p0_own = cameo._rounds_init(xp.to(dev)[None], nv, cfg)
-        probe, body = cameo._round_fns(
-            cfg, nb, nv, torch.full((1,), min_alive, dtype=torch.int32,
-                                    device=dev),
-            torch.full((1,), eps, dtype=cfg.tdtype(), device=dev),
-            p0_own if p0 is None else p0.to(dev))
-        return carry, p0_own, probe, body
-
-    def lane0(carry):
-        return tuple(t[0] for t in carry)
-
-    carry_c, p0_c, probe_c, body_c = setup(cpu)
-    carry_g, p0_g, probe_g, body_g = setup(device)
-    _, _, probe_l, body_l = setup(device, p0_c)
-    init = _carry_diffs(carry_c, carry_g)
-    if bool(torch.any(p0_c != p0_g.cpu())):
-        init["p0"] = dict(max_abs_diff=float(torch.max(torch.abs(
-            p0_c - p0_g.cpu()))))
-    parted = None
-    lockstep, n_lock = [], 0
-    r = 0
-    free_g = True
-    while True:
-        ((go, small),) = probe_c(carry_c).tolist()
-        state_l = tuple(t.to(device) for t in carry_c)
-        (gl,) = probe_l(state_l).tolist()
-        if gl != [go, small]:
-            n_lock += 1
-            if len(lockstep) < keep:
-                lockstep.append(dict(round=r, probe_cpu=[go, small],
-                                     probe_card=gl))
-        if free_g:
-            ((go_g, small_g),) = probe_g(carry_g).tolist()
-        if not go or (parted is not None
-                      and r >= parted["round"] + DIVERGE_PAST):
-            break
-        nxt_c = body_c(carry_c, small=small)
-        d = _carry_diffs(nxt_c, body_l(state_l, small=small))
-        if d:
-            n_lock += 1
-            if len(lockstep) < keep:
-                lockstep.append(dict(round=r, small=small, fields=d))
-        if free_g and not go_g:
-            parted = dict(round=r, card_run_ended=True,
-                          state_before=_carry_diffs(carry_c, carry_g))
-            free_g = False
-        if free_g:
-            nxt_g = body_g(carry_g, small=small_g)
-            kept_c, kept_g = nxt_c[1][0], nxt_g[1][0].cpu()
-            if bool(torch.any(kept_c != kept_g)) or small_g != small:
-                pts = torch.nonzero(kept_c != kept_g).view(-1)
-                pts = pts[:8].tolist()
-                parted = dict(round=r, small_cpu=small, small_card=small_g,
-                              state_before=_carry_diffs(carry_c, carry_g),
-                              after=_carry_diffs(nxt_c, nxt_g),
-                              removed_cpu=[i for i in pts
-                                           if not bool(kept_c[i])],
-                              removed_card=[i for i in pts
-                                            if not bool(kept_g[i])],
-                              keys_cpu=_ranking_keys(lane0(carry_c), p0_c[0],
-                                                     cfg, n, pts),
-                              keys_card=_ranking_keys(lane0(carry_g),
-                                                      p0_g[0], cfg, n, pts))
-                free_g = False
-            carry_g = nxt_g
-        carry_c = nxt_c
-        r += 1
-    return dict(dataset=name, rounds_cpu=r, init=init, parted=parted,
-                lockstep_rounds_differing=n_lock, lockstep_first=lockstep)
-
-
 def run_phases(device, *, uk_length=None, aus_length=None,
                seq_lengths=None, seq_full=(), cpu_check: bool = True,
                batches=BATCHES, kernel_lanes=None,
@@ -1589,23 +1326,7 @@ def main() -> int:
         print(r["path"] + " " + json.dumps({k: r.get(k) for k in keys}))
     t0 = time.perf_counter()
     print("lockstep " + json.dumps(scan_lockstep(device)))
-    # the rounds path, then the scan on both datasets: how much of a scan
-    # round the prefix walk takes, from the trace
-    for name, path in (("uk_elec", "rounds"), ("uk_elec", "scan"),
-                       ("aus_elec", "scan"), ("uk_elec", "batch")):
-        print("profile " + json.dumps(profile_main(device, name, path)))
-    # a block of sequential pops: the host dispatch a pop, and what the
-    # ReHeap's acf_window_impact takes of it
-    print("profile " + json.dumps(profile_main(
-        device, "uk_elec", "sequential",
-        length=SEQ_LENGTHS["uk_elec"], pops=256)))
-    seconds["lockstep_profiles"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    div = first_divergence(device)
-    (ROOT / "chiprun_out" / "diverge_aus_elec.json").write_text(
-        json.dumps(div, indent=1))
-    print("diverge " + json.dumps(div))
-    seconds["divergence"] = time.perf_counter() - t0
+    seconds["lockstep"] = time.perf_counter() - t0
     print("seconds " + json.dumps(seconds))
 
     print(json.dumps({"kernels": kernel_rows(report)}))

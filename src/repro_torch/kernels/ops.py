@@ -99,9 +99,10 @@ def lag_dot(a: torch.Tensor, L: int, *, b=None, halo=None,
 
 
 def prefix_sum(x: torch.Tensor, backend: str = "auto") -> torch.Tensor:
-    """Inclusive prefix sums of ``x [..., n]`` over the last axis, left to
-    right in float64 (the kernel on the card, ``torch.cumsum`` on the CPU:
-    the same bits, whatever the rows beside a row)."""
+    """Inclusive prefix sums of ``x [..., n]`` over the last axis in XLA's
+    cumsum order (``kernels/prefix_sum.py``; the kernel on the card, the
+    plain version on the CPU: the JAX reference's bits, whatever the rows
+    beside a row)."""
     if resolve_backend(backend, x.device) == "cuda":
         return prefix_sum_cuda(x)
     return prefix_sum_plain(x)

@@ -23,8 +23,9 @@ JAX package, and the lane axis of the round body and of its four kernels.
 (d) the batched plain form of each kernel of the rounds path equals its
     1-D form lane by lane, and, on a card only, each batched kernel equals
     its plain version (tolerance 0; lag_dot 1e-10 of max|plain|) and its
-    one-lane launches bit for bit; prefix_sum's plain version (torch.cumsum
-    on the CPU) sums in the kernel's order, left to right in float64.
+    one-lane launches bit for bit; prefix_sum's plain version, and a model
+    of its kernel's tiles and carries, sum in XLA's cumsum order (equal to
+    ``jax.numpy.cumsum`` bit for bit).
 """
 import dataclasses
 import os
@@ -491,36 +492,113 @@ def test_lag_dot_plain_cross_lanes():
     assert float(torch.max(torch.abs(got - want))) <= 1e-12
 
 
-@pytest.mark.parametrize("dt", [torch.float64, torch.float32])
-@pytest.mark.parametrize("shape", [(1, 700), (4, 700), (3, 1), (2, 5000)])
-def test_prefix_sum_plain_is_left_to_right(dt, shape):
-    """The kernel's order: one add at a time, first to last, in float64,
-    each sum rounded to the row's type; torch.cumsum on the CPU sums so,
-    whatever the rows beside a row, and the CPU wrapper takes it."""
-    rng = np.random.default_rng(shape[1])
-    x = rng.standard_normal(shape) * 10.0 ** rng.uniform(-6, 6, shape)
-    xt = torch.from_numpy(x).to(dt)
-    want = np.empty(shape)
-    for r in range(shape[0]):
-        acc = 0.0
-        for i, v in enumerate(xt[r].double().tolist()):
-            acc = acc + v
-            want[r, i] = acc
-    got = prefix_sum_cuda(xt)
-    assert torch.equal(got, torch.from_numpy(want).to(dt))
-    assert torch.equal(got, prefix_sum_plain(xt))
-    for r in range(shape[0]):
-        assert torch.equal(got[r], prefix_sum_plain(xt[r])), r
+# row lengths around XLA's 16-value groups and the kernel's 4,096-value
+# tiles, uk_elec's rows and a row past 16 tiles (levels 0-4)
+XLA_LENGTHS = (1, 15, 16, 17, 255, 256, 257, 4095, 4096, 4097, 18432, 65537)
+_jnp_cumsum = jax.jit(lambda a: jnp.cumsum(a, axis=-1))
+
+
+def _rows(n, dt, seed, rows=3):
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((rows, n)) * 10.0 ** rng.uniform(-6, 6, (rows, n))
+    return x.astype(dt)
+
+
+def _bits_equal(got: torch.Tensor, want) -> bool:
+    want = np.asarray(want)
+    got = got.numpy()
+    return got.dtype == want.dtype and np.array_equal(got.view(np.uint8),
+                                                      want.view(np.uint8))
+
+
+@pytest.mark.parametrize("dt", [np.float64, np.float32])
+@pytest.mark.parametrize("n", XLA_LENGTHS)
+def test_prefix_sum_plain_is_xla_order(dt, n):
+    """prefix_sum's order is jnp.cumsum's (XLA's base-16 blocked scan, in
+    the row's own type): the plain version and the CPU wrapper equal
+    jax.jit(jnp.cumsum) bit for bit, on one row and on [3, n], each row
+    also alone."""
+    x = _rows(n, dt, n)
+    want = _jnp_cumsum(x)
+    xt = torch.from_numpy(x)
+    assert _bits_equal(prefix_sum_plain(xt), want)
+    assert _bits_equal(prefix_sum_cuda(xt), want)
+    assert _bits_equal(prefix_sum_plain(xt[1]), _jnp_cumsum(x[1]))
+    for r in range(3):
+        assert _bits_equal(prefix_sum_plain(xt[r]), np.asarray(want)[r]), r
+
+
+@pytest.mark.parametrize("dt", [np.float64, np.float32])
+def test_prefix_sum_plain_signed_zeros(dt):
+    """-0 and +0 sum as XLA sums them: every chain starts from +0, so no
+    sum is -0, whatever the zeros' signs."""
+    x = np.array([[-0.0, -0.0, 1.0, -1.0, -0.0, 0.0] * 700,
+                  [-0.0] * 4200], dtype=dt)
+    want = _jnp_cumsum(x)
+    assert _bits_equal(prefix_sum_plain(torch.from_numpy(x)), want)
+    assert not np.signbit(np.asarray(want)).any()
+
+
+def _kernel_schedule(x: torch.Tensor) -> torch.Tensor:
+    """csrc/prefix_sum.cu's arithmetic on one row, tile by tile: each 4,096-
+    value tile's levels 0-2 (one chain a 16-value group), the published
+    values (total, level-2 partial 14, level-1 partial 255), every block's
+    scan of the tile totals (the plain version's order over them), the
+    carries of each tile and its three-add downsweep."""
+    n, tile = x.shape[0], 4096
+    nt = -(-n // tile)
+    xp = torch.nn.functional.pad(x, (0, nt * tile - n)).view(nt, tile)
+
+    def chain(v):                        # [..., 16], from +0, one at a time
+        acc, out = torch.zeros_like(v[..., 0]), []
+        for k in range(16):
+            acc = acc + v[..., k]
+            out.append(acc)
+        return torch.stack(out, -1)
+    inb0 = chain(xp.view(nt, 256, 16))
+    inb1 = chain(inb0[..., 15].reshape(nt, 16, 16))
+    inb2 = chain(inb1[..., 15])
+    total, l2_14, l1_255 = inb2[:, 15], inb2[:, 14], inb1[:, 15, 15]
+    p3 = prefix_sum_plain(total)
+    zero = torch.zeros((), dtype=x.dtype)
+    out = []
+    for t in range(nt):
+        q = p3[t - 2] if t >= 2 else zero
+        c3 = p3[t - 1] if t >= 1 else zero
+        c2 = total[t - 1] + q if t >= 1 else zero
+        c1 = l1_255[t - 1] + (l2_14[t - 1] + q) if t >= 1 else zero
+        p2 = inb2[t] + c3
+        p1 = inb1[t] + torch.cat([c2.view(1), p2[:15]])[:, None]
+        before = torch.cat([c1.view(1), p1.reshape(256)[:255]])
+        out.append((inb0[t] + before[:, None]).reshape(tile))
+    return torch.cat(out)[:n]
+
+
+@pytest.mark.parametrize("dt", [np.float64, np.float32])
+@pytest.mark.parametrize("n", [1, 17, 4097, 18432, 65537, 200000])
+def test_prefix_sum_kernel_schedule_is_xla_order(dt, n):
+    """The kernel's tiles and carries (modelled on the CPU: the kernel runs
+    only on a card) give jnp.cumsum's bits: one tile, two, uk_elec's five,
+    17 tiles (two levels above the tiles) and 49 (a block reads tiles
+    again)."""
+    x = _rows(n, dt, n, rows=1)[0]
+    assert _bits_equal(_kernel_schedule(torch.from_numpy(x)),
+                       _jnp_cumsum(x))
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dt", [torch.float64, torch.float32])
 def test_gpu_prefix_sum_lanes(cuda, dt):
-    """The kernel equals torch.cumsum on the CPU bit for bit (one chunk,
-    several, a partial last one, one value) and each lane its one-lane
-    launch."""
-    for shape in ((1, 18432), (16, 18432), (4, 5120), (2, 245760), (3, 1),
-                  (5, 2049)):
+    """The kernel equals its plain version on the CPU bit for bit and each
+    lane its one-lane launch: XLA's group and tile boundaries, the main
+    path's pairs (uk_elec one series and B = 16, aus_elec), a cluster of 8
+    blocks with one tile each and with a second round (32,768 / 32,769), all
+    tiles kept in shared memory and one more, read again (float64 196,608 /
+    196,609; float32 393,217), and aus_elec's full bucket."""
+    shapes = [(3, n) for n in XLA_LENGTHS] + [
+        (2, 18432), (32, 18432), (2, 5120), (8, 5120), (2, 32768),
+        (2, 32769), (2, 196608), (2, 196609), (1, 393217), (2, 245760)]
+    for shape in shapes:
         rng = np.random.default_rng(shape[1])
         x = torch.from_numpy(rng.standard_normal(shape) * 10.0 ** rng.uniform(
             -6, 6, shape)).to(cuda, dt)

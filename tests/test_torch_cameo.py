@@ -352,10 +352,12 @@ def test_kept_points_decompress_roundtrip():
 
 
 def test_chip_smoke_phases_rehearsal():
-    """chip_smoke.py's phases 3-4 at a tiny size on the CPU, where every
-    wrapper takes its plain version (the script itself refuses to run
-    without a card)."""
+    """chip_smoke.py's phases 3-4, and tools/profile_paths.py's divergence
+    pass, at a tiny size on the CPU, where every wrapper takes its plain
+    version (the script itself refuses to run without a card)."""
     import chip_smoke
+    sys.path.insert(0, os.path.join(ROOT, "tools"))
+    import profile_paths
     report = chip_smoke.run_phases(
         "cpu", uk_length=512, aus_length=48 * 48,
         seq_lengths={"uk_elec": 256, "aus_elec": 48 * 12},
@@ -363,13 +365,15 @@ def test_chip_smoke_phases_rehearsal():
                  ("uk_elec", 4, False)),
         kernel_lanes={"uk_elec": 3, "aus_elec": 2}, prefix_lanes=2,
         mv_columns=2, log=lambda s: None)
-    # the window kernels: the main cases, then a boundary-heavy one each
-    # (acf_window_impact's ranking chunk at kappa = 1 only); then the five
-    # kernels of the rounds path on lanes (prefix_devs at uk_elec only)
+    # prefix_sum's one row and pair of rows (and, with uk_elec, its pairs
+    # of four more lengths); the window kernels: the main cases, then a
+    # boundary-heavy one each (acf_window_impact's ranking chunk at kappa =
+    # 1 only); then the five kernels of the rounds path on lanes
+    # (prefix_devs at uk_elec only)
     assert [(k["dataset"], k["name"]) for k in report["kernels"]] == [
         (d, k) for d in ("uk_elec", "aus_elec")
-        for k in ("lag_dot", "prefix_sum", "acf_impact", "window_rows",
-                  "window_rows")
+        for k in ("lag_dot",) + ("prefix_sum",) * (6 if d == "uk_elec" else 2)
+        + ("acf_impact", "window_rows", "window_rows")
         + ("acf_window_impact",) * (3 if d == "uk_elec" else 2)
         + ("acf_impact", "prefix_devs", "prefix_devs")] + [
         (d, k) for d in ("uk_elec", "aus_elec")
@@ -393,7 +397,10 @@ def test_chip_smoke_phases_rehearsal():
                for k in pd)
     rows = chip_smoke.kernel_rows(report)
     assert [r["name"] for r in rows] == list(chip_smoke.WRAPPERS)
-    assert [len(r["shapes"]) for r in rows] == [4, 6, 6, 5, 5, 4]
+    assert [len(r["shapes"]) for r in rows] == [4, 6, 6, 5, 5, 10]
+    ps = [k for k in report["kernels"] if k["name"] == "prefix_sum"]
+    assert [k["shape"].split(" x n=")[1] for k in ps[2:6]] == [
+        f"{n} float64" for n in chip_smoke.PREFIX_SUM_LENGTHS]
     # the batch phase: each lane held against its per-series run, and the
     # multivariate run's columns on one shared index
     bt = report["batches"]
@@ -402,7 +409,7 @@ def test_chip_smoke_phases_rehearsal():
         ("batch", "uk_elec", 4), ("multivariate", "uk_elec", None)]
     assert [r.get("lanes_held") for r in bt[:3]] == [3, 2, None]
     assert bt[3]["C"] == 2 and len(bt[3]["deviations"]) == 2
-    div = chip_smoke.first_divergence("cpu", length=48 * 48)
+    div = profile_paths.first_divergence("cpu", length=48 * 48)
     assert div["parted"] is None and div["init"] == {}
     assert div["lockstep_rounds_differing"] == 0
     assert div["rounds_cpu"] == report["runs"][1]["iters"]

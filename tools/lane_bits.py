@@ -8,8 +8,9 @@ The round body's float64 sums: the prefix sums of the dense Eq. 10/11
 update and of the Eq. 7 moments at init, the update's bilinear term (as
 PyTorch computes them, ``torch.cumsum`` over the last axis and a batched
 matrix product against a shift view, and as the port does, through the
-``prefix_sum`` kernel and ``lag_dot``'s cross form), the whole update, the
-kappa-mean of ``aggregate_series`` and the kappa-sum of the x-to-y delta,
+``prefix_sum`` kernel, in XLA's cumsum order, and ``lag_dot``'s cross
+form), the whole update, the kappa-mean of ``aggregate_series`` and the
+kappa-sum of the x-to-y delta,
 the one-hot segment sum of ``ops.x_window_to_y`` and the measure's mean
 over the lags.  Each is computed on ``--lanes`` lanes of uk_elec- or
 aus_elec-shaped data (seeded) and, lane by lane, on that lane alone (the
@@ -68,7 +69,8 @@ def main() -> int:
                               lambda: torch.cumsum(d, -1)),
         "bilinear product [B, 1, 18432] x [B, 18432, 48]": (
             lambda b: shifted(d[b], y[b]), lambda: shifted(d, y)),
-        "prefix_sum kernel [B, 18432] (the dense update's sums)": (
+        "prefix_sum kernel, XLA's cumsum order [B, 18432] (the dense "
+        "update's sums)": (
             lambda b: ops.prefix_sum(d[b]), lambda: ops.prefix_sum(d)),
         "lag_dot kernel, cross form [B, 18432] L 48 (its products)": (
             lambda b: ops.lag_dot(d[b], L, b=y[b]),

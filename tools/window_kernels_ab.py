@@ -17,8 +17,10 @@ more tree, built the same way.  ``--kernels`` keeps a subset of STEMS.
 1. On each of ``chip_smoke.py``'s phase-3 cases of the kernels (both
    datasets; the window kernels' boundary-heavy cases too) every build is
    held against the plain version under mae, rmse and cheb (prefix_devs:
-   its greedy walk under mae, and at K <= 4,096 under rmse and cheb too),
-   at ``chip_smoke.TOL``, then timed under mae with CUDA events in turns
+   its greedy walk under mae, and at K <= 4,096 under rmse and cheb too;
+   prefix_sum against its own tree's plain version, on the CPU, since the
+   trees may sum in other orders), at ``chip_smoke.TOL``, then timed under
+   mae with CUDA events in turns
    (parent, this tree, the variants, then the same in reverse; each turn
    ``chip_smoke.device_ms``).
 2. Real launches (unless ``--no-real``): ``chip_smoke.py``'s seven
@@ -30,7 +32,8 @@ more tree, built the same way.  ``--kernels`` keeps a subset of STEMS.
    the window kernels, the share of launches with a candidate that is not
    interior and the interior share of candidates.  Then each build
    replays every recorded launch (its outputs must equal the recorded
-   ones, at ``chip_smoke.TOL``) and is timed over them in the same turns
+   ones at ``chip_smoke.TOL``, or for prefix_sum its own tree's plain
+   version on the CPU bit for bit) and is timed over them in the same turns
    (the window kernels' launches with every candidate interior and the
    others apart), in chunks of 256 enqueued behind a busy card, so the sum
    is the kernel's launch-weighted device time over the real runs.
@@ -50,6 +53,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -63,7 +67,7 @@ from repro_torch.kernels import ops as _ops  # noqa: E402
 from repro_torch.kernels import ref as _ref  # noqa: E402
 
 STEMS = ("acf_window_impact", "window_rows", "acf_impact", "lag_dot",
-         "prefix_devs")
+         "prefix_devs", "prefix_sum")
 WINDOW = ("acf_window_impact", "window_rows")
 # each kernel's wrapper: (module of kernels/, function)
 WRAPPER_OF = {"acf_window_impact": ("acf_window_impact",
@@ -71,7 +75,11 @@ WRAPPER_OF = {"acf_window_impact": ("acf_window_impact",
               "window_rows": ("fused_round", "window_rows_cuda"),
               "acf_impact": ("acf_impact", "acf_impact_cuda"),
               "lag_dot": ("lag_dot", "lag_dot_cuda"),
-              "prefix_devs": ("fused_round", "prefix_devs_cuda")}
+              "prefix_devs": ("fused_round", "prefix_devs_cuda"),
+              "prefix_sum": ("prefix_sum", "prefix_sum_cuda")}
+# kernels held to their own tree's plain version (name in the same module):
+# the trees may sum in other orders
+OWN_PLAIN = {"prefix_sum": "prefix_sum_plain"}
 
 
 def build_other(name: str, tree: Path, stems) -> dict:
@@ -98,12 +106,14 @@ def build_other(name: str, tree: Path, stems) -> dict:
     return libs
 
 
-def tree_wrappers(name: str, tree: Path, stems) -> dict:
-    """kernel -> its wrapper as ``tree`` writes it: the tree's module of
-    ``kernels/`` loaded under a name of its own.  It imports this tree's
-    ``_build``, whose libraries ``use`` swaps, and this tree's other
-    modules."""
+def tree_wrappers(name: str, tree: Path, stems, plain: bool = False) -> dict:
+    """kernel -> its wrapper as ``tree`` writes it (with ``plain``, its
+    OWN_PLAIN version): the tree's module of ``kernels/`` loaded under a
+    name of its own.  It imports this tree's ``_build``, whose libraries
+    ``use`` swaps, and this tree's other modules."""
     mods, out = {}, {}
+    if plain:
+        stems = [k for k in stems if k in OWN_PLAIN]
     for kname in stems:
         mod, fn = WRAPPER_OF[kname]
         if mod not in mods:
@@ -112,7 +122,7 @@ def tree_wrappers(name: str, tree: Path, stems) -> dict:
                 f"ab_{name}_{mod}", path)
             mods[mod] = importlib.util.module_from_spec(spec)
             spec.loader.exec_module(mods[mod])
-        out[kname] = getattr(mods[mod], fn)
+        out[kname] = getattr(mods[mod], OWN_PLAIN[kname] if plain else fn)
     return out
 
 
@@ -180,6 +190,21 @@ def cases(device, stems):
                 yield ("prefix_devs", name,
                        f"{c['label']}: K={K} ok={ok} Wy={Wy} greedy", run,
                        plain, every if K <= 4096 else ("mae",))
+        if "prefix_sum" in stems:
+            y64 = chip_smoke.kernel_inputs(device, name)[4]
+            rows = [y64, torch.stack([y64, y64 * y64])]
+            if name == chip_smoke.DATASETS[0]:
+                rng = np.random.default_rng(5)
+                rows += [torch.from_numpy(rng.standard_normal((2, n))).to(
+                    device) for n in chip_smoke.PREFIX_SUM_LENGTHS]
+            for x in rows:
+                def run(w, measure, x=x):
+                    return w(x)
+
+                def plain(measure, fn, x=x):
+                    return fn(x.cpu()).to(device)
+                yield ("prefix_sum", name, f"{list(x.shape)} float64", run,
+                       plain, ("mae",))
 
 
 # the main-path runs of chip_smoke.py: (dataset, path, length)
@@ -192,7 +217,8 @@ CALLERS = {"acf_window_impact": [(_ops, "acf_window_impact_cuda")],
            "acf_impact": [(_cameo, "acf_impact_cuda"),
                           (_ops, "acf_impact_cuda")],
            "lag_dot": [(_ops, "lag_dot_cuda")],
-           "prefix_devs": [(chip_smoke._fused, "prefix_devs_cuda")]}
+           "prefix_devs": [(chip_smoke._fused, "prefix_devs_cuda")],
+           "prefix_sum": [(_ops, "prefix_sum_cuda")]}
 
 
 def _clone(v):
@@ -287,7 +313,7 @@ def replay_ms(wrapper, calls: list, device, chunk: int = 256) -> float:
     return total
 
 
-def real_rows(device, libs, wrappers, use, turns, stems) -> list:
+def real_rows(device, libs, wrappers, plains, use, turns, stems) -> list:
     """Replay times of every build over the recorded launches of the seven
     main-path runs, with the window kernels' interior shares."""
     rows = []
@@ -311,11 +337,18 @@ def real_rows(device, libs, wrappers, use, turns, stems) -> list:
             split = {"all": calls}
         for which in libs:
             use(which)
+            what = (f"{which} {kname}: a real launch of {run['dataset']} "
+                    f"{run['path']} against its recorded output")
             for c in calls:
-                chip_smoke.check_close(
-                    f"{which} {kname}: a real launch of {run['dataset']} "
-                    f"{run['path']} against its recorded output", kname,
-                    wrappers[which][kname](*c["args"], **c["kw"]), c["out"])
+                got = wrappers[which][kname](*c["args"], **c["kw"])
+                if kname in OWN_PLAIN:
+                    # its own plain version's bits (a real launch's rows
+                    # may be all zeros, which check_close refuses)
+                    want = plains[which][kname](
+                        *(a.cpu() for a in c["args"]), **c["kw"])
+                    chip_smoke.require(torch.equal(got.cpu(), want), what)
+                else:
+                    chip_smoke.check_close(what, kname, got, c["out"])
         for part, sub in split.items():
             if not sub:
                 continue
@@ -366,10 +399,12 @@ def main() -> int:
             "this": {s: _build.library(s) for s in stems}}
     wrappers = {"parent": tree_wrappers("parent", trees["parent"], stems),
                 "this": dict(chip_smoke.WRAPPERS)}
+    plains = {"this": tree_wrappers("this", ROOT, stems, plain=True)}
     for name, tree in trees.items():
         if name != "parent":
             libs[name] = build_other(name, tree, stems)
             wrappers[name] = tree_wrappers(name, tree, stems)
+        plains.setdefault(name, tree_wrappers(name, tree, stems, plain=True))
     turns = list(libs) + list(libs)[::-1]
 
     def use(which):
@@ -379,9 +414,11 @@ def main() -> int:
     rows = []
     for kname, dataset, label, run, plain, measures in cases(device, stems):
         row = dict(kernel=kname, dataset=dataset, case=label)
-        want = {m: plain(m) for m in measures}
+        mine = kname not in OWN_PLAIN and {m: plain(m) for m in measures}
         for which in libs:
             use(which)
+            want = mine or {m: plain(m, plains[which][kname])
+                            for m in measures}
             err = 0.0
             for measure in measures:
                 err = max(err, chip_smoke.check_close(
@@ -404,8 +441,8 @@ def main() -> int:
         use("this")   # the next case's inputs are made through this tree
     floor = chip_smoke.launch_floor_ms(device)
     print("launch_floor " + json.dumps({"ms": floor}))
-    real = [] if args.no_real else real_rows(device, libs, wrappers, use,
-                                             turns, stems)
+    real = [] if args.no_real else real_rows(device, libs, wrappers, plains,
+                                             use, turns, stems)
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "window_kernels_ab.json").write_text(json.dumps(
