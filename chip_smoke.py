@@ -57,6 +57,21 @@ Phases, each of which fails the run (non-zero exit) on a wrong result:
    uk_elec-shaped ``[17,520, 4]``; every lane and column passes the
    guarantee checks above, and a round launches acf_impact at most twice
    and window_rows at most 2 x 2 times (two lane groups), whatever B;
+   Then the streaming phase (``core/streaming.py`` into ``store/``, with
+   the telemetry registry on): uk_elec (17,520 points, windows of 4,096,
+   the feed in seeded chunks of 1-3,000 points) at queue depths 1 and 4
+   and as one chunk, aus_elec (its first 71,360 points, windows of 4,080)
+   at queue depths 1 and 8, and a uk_elec-shaped ``[17,520, 4]``
+   multivariate stream: kept masks and ``xr`` bits equal across chunkings
+   and depths, each full window equal to ``compress()`` of its slice,
+   every compressed window within eps by a float64 re-measure, the
+   stream's ``deviation()`` within 1e-9 of a from-scratch measure, a
+   mid-stream ``state_dict`` resumed to the same bits, the windows written
+   through ``open_stream`` into a store read back bit-equal (and the
+   file's bytes equal between the depths), the build watermark flat, and
+   the CR within 5% of the same stream on the CPU; wall s, points per
+   second, ``lag_dot`` halo launches and ``compress_batch`` calls
+   reported;
 5. the lock-step check — a scan round on uk_elec from one carry on the
    card: the greedy branch with the prefix_devs kernel and with its plain
    version must take the same candidates; then the seconds of each phase
@@ -88,7 +103,9 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch import obs  # noqa: E402
 from repro_torch.core import cameo  # noqa: E402
+from repro_torch.core import streaming  # noqa: E402
 from repro_torch.core.acf import (acf_from_aggregates, aggregate_series,  # noqa: E402
                                   extract_aggregates)
 from repro_torch.data.synthetic import (dataset_cameo_kwargs,  # noqa: E402
@@ -101,6 +118,7 @@ from repro_torch.kernels import lag_dot as _lag_dot  # noqa: E402
 from repro_torch.kernels import ops as _ops  # noqa: E402
 from repro_torch.kernels import prefix_sum as _prefix_sum  # noqa: E402
 from repro_torch.kernels import ref as _ref  # noqa: E402
+from repro_torch.store import CameoStore  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -134,7 +152,8 @@ REPLACES = {"lag_dot": "src/repro/kernels/lag_dot.py:42",
 # Every kernel but lag_dot rounds each operation as its plain version does
 # and sums in its order, so it is held exactly: the rankings and the scan's
 # decisions depend on every bit.  lag_dot's float64 sums run in another
-# order than the plain version's matmul: 1e-10.  prefix_sum is held
+# order than the plain version's (left to right, the JAX reference's, on
+# the CPU): 1e-10.  prefix_sum is held
 # exactly to its plain version on the CPU: both take XLA's cumsum order
 # (torch.cumsum's order is another, on the card and on the CPU).
 TOL = {"lag_dot": (1e-10, 1e-10), "acf_impact": (0.0, 0.0),
@@ -171,6 +190,17 @@ PREFIX_LANES = 2
 # acf_impact once and window_rows TIERS times for each of its (at most two)
 # lane groups, whatever the lanes
 TIERS = 2
+# the streaming phase: (case, dataset, points, window, queue depths, whether
+# the feed also goes in as one chunk); the window is the JAX package's
+# default (4,096) rounded down to a multiple of kappa; uk_elec's year gives
+# 4 full windows and a 1,136-point tail, aus_elec's first 71,360 points 17
+# full windows and a 2,000-point tail (1,968 compressed at ny 41, a
+# 32-point kappa remainder kept verbatim)
+STREAMS = (("uk_elec", "uk_elec", 17520, 4096, (1, 4), True),
+           ("aus_elec", "aus_elec", 71360, 4080, (1, 8), False))
+STREAM_MV_COLUMNS = 4
+# chunk sizes of the seeded feed
+STREAM_CHUNKS = (1, 3000)
 # the sequential mode's lengths (the quickstart's documented 4,096 points
 # for uk_elec, 100 y cells of kappa = 48 for aus_elec): it pops one point
 # per iteration, each a few ms of eager host dispatch on the card
@@ -964,7 +994,8 @@ def phase_main(device, name: str, path: str = "rounds", length=None,
     row = dict(dataset=name, path=path, n=n, lags=cfg.lags, kappa=cfg.kappa,
                iters=int(res.iters), cr=cr, deviation=dev, remeasured=re,
                wall_s=wall, s_per_iter=wall / max(int(res.iters), 1),
-               launches=counts, max_memory_allocated=mem)
+               launches=counts, launches_per_iter=sum(counts.values())
+               / max(int(res.iters), 1), max_memory_allocated=mem)
     if cpu_check and device.type == "cuda":
         t0 = time.perf_counter()
         ref = cameo.compress(x, cfg, device="cpu")
@@ -1087,6 +1118,299 @@ def phase_multivariate(device, name: str = "uk_elec", C: int = MV_COLUMNS,
                 launches=counts, max_memory_allocated=mem)
 
 
+# ---------------------------------------------------------------------------
+# phase 4, streaming: StreamingCompressor / MVStreamingCompressor into a store
+# ---------------------------------------------------------------------------
+
+def stream_chunks(n: int, seed: int = 0):
+    """Seeded chunk borders of a feed of ``n`` points (1-3,000 points a
+    chunk)."""
+    rng = np.random.default_rng(seed)
+    cuts, at = [], 0
+    while True:
+        at += int(rng.integers(STREAM_CHUNKS[0], STREAM_CHUNKS[1] + 1))
+        if at >= n:
+            return cuts
+        cuts.append(at)
+
+
+def _feed(sc, chunks, sess=None, stop_after=None):
+    """Push ``chunks`` (then finish, unless stopped after chunk
+    ``stop_after``); every closed window goes to ``sess`` too.  Returns
+    the windows."""
+    wins = []
+    for i, chunk in enumerate(chunks):
+        got = sc.push(chunk)
+        wins += got
+        if sess is not None:
+            sess.append_windows(got)
+        if i == stop_after:
+            return wins
+    got = sc.finish()
+    if sess is not None:
+        sess.append_windows(got)
+    return wins + got
+
+
+def _concat(wins, field):
+    return np.concatenate([getattr(w, field) for w in wins])
+
+
+def _bits(a) -> bytes:
+    return np.ascontiguousarray(a).tobytes()
+
+
+def _count_batches():
+    """Count ``compress_batch`` calls made by the streaming module (a drain
+    of several windows is one)."""
+    calls = [0]
+    real = streaming.compress_batch
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return real(*a, **kw)
+
+    streaming.compress_batch = counted
+    return calls, lambda: setattr(streaming, "compress_batch", real)
+
+
+def _stream_store(device, tmp: Path, tag: str, cfg, wins, channels=1):
+    """The windows written through ``open_stream`` into a port store;
+    returns (file bytes, decoded series)."""
+    path = str(tmp / f"{tag}.cameo")
+    with CameoStore.create(path, version=4, device=device) as st:
+        sess = st.open_stream("s", cfg, channels=channels)
+        sess.append_windows(wins)
+        if channels == 1:
+            sess.close()
+        else:
+            sess.close(deviations=[0.0] * channels)
+    with CameoStore.open(path, device=device) as st:
+        decoded = st.read_series("s")
+    return Path(path).read_bytes(), decoded
+
+
+def phase_stream(device, case: str, name: str, n: int, W: int, depths,
+                 one_chunk: bool, tmp: Path, cpu_check: bool = True) -> dict:
+    """One univariate stream at full width: the seeded feed at each queue
+    depth (and, with ``one_chunk``, as one chunk), held window for window (kept masks and ``xr``
+    bits equal across chunkings and depths; each full window equal to
+    ``compress()`` of its slice on the same device; every compressed
+    window within eps by a float64 re-measure; the stream's ``deviation()``
+    within 1e-9 of a from-scratch measure; a mid-stream ``state_dict``
+    resumed to the same bits; the windows written into a store read back
+    bit-equal, and the file's bytes equal between the depths)."""
+    cfg = cameo.CameoConfig(eps=EPS, **dataset_cameo_kwargs(name))
+    x = make_dataset(name, seed=0)[:n]
+    chunks = np.split(x, stream_chunks(n))
+    what = f"stream {case}"
+    runs = {}
+    batches, restore = _count_batches()
+    try:
+        for qd in depths:
+            reset_counts()
+            _lag_dot.lag_dot_cuda.halo_launches = 0
+            batches[0] = 0
+            sc = streaming.StreamingCompressor(cfg, W, queue_depth=qd,
+                                               device=device)
+            wins, wall, mem = _run_timed(lambda: _feed(sc, chunks), device)
+            runs[qd] = dict(wins=wins, wall_s=wall, mem=mem,
+                            deviation=sc.deviation(),
+                            launches=read_counts(),
+                            halo_launches=_lag_dot.lag_dot_cuda.halo_launches,
+                            batch_calls=batches[0])
+    finally:
+        restore()
+    first = runs[depths[0]]
+    kept, xr = _concat(first["wins"], "kept"), _concat(first["wins"], "xr")
+    for qd, r in runs.items():
+        require(_bits(_concat(r["wins"], "kept")) == _bits(kept)
+                and _bits(_concat(r["wins"], "xr")) == _bits(xr),
+                f"{what}: queue depth {qd} gives other windows than "
+                f"{depths[0]}")
+        require(r["deviation"] == first["deviation"],
+                f"{what}: queue depth {qd} gives another deviation")
+    if one_chunk:
+        one = streaming._compress_windowed(x, cfg, W, device=device)
+        require(_bits(one.kept.cpu().numpy()) == _bits(kept)
+                and _bits(one.xr.cpu().numpy()) == _bits(xr),
+                f"{what}: one chunk gives other windows than the chunked "
+                f"feed")
+    if device.type == "cuda":
+        for kname in PATHS["rounds"][1]:
+            require(first["launches"][kname] > 0,
+                    f"{what}: kernel {kname} was never launched")
+        require(first["halo_launches"] > 0,
+                f"{what}: lag_dot's halo form was never launched")
+    # window by window: the guarantee, and full windows against compress()
+    full = 0
+    for w in first["wins"]:
+        m = w.x.shape[0]
+        ndiv = (m // cfg.kappa) * cfg.kappa
+        if w.iters == 0:          # kept verbatim
+            require(bool(w.kept.all()), f"{what}: a verbatim window dropped "
+                                        f"a point")
+            continue
+        re = remeasure(w.x[:ndiv], w.xr[:ndiv], cfg)
+        require(re <= cfg.eps + 1e-9,
+                f"{what}: window at {w.start} re-measures {re} > eps")
+        require(bool(w.kept[0] and w.kept[-1])
+                and np.array_equal(w.xr[w.kept], w.x[w.kept]),
+                f"{what}: window at {w.start} lost an endpoint or a kept "
+                f"value's bits")
+        if m == W:
+            full += 1
+            res = cameo.compress(w.x, cfg, device=device)
+            require(_bits(res.kept.cpu().numpy()) == _bits(w.kept)
+                    and _bits(res.xr.cpu().numpy()) == _bits(w.xr),
+                    f"{what}: window at {w.start} differs from compress() "
+                    f"of its slice")
+            require(abs(float(res.deviation) - re) <= 1e-9,
+                    f"{what}: window at {w.start}: compress() reports "
+                    f"{float(res.deviation)}, re-measured {re}")
+    nd = (n // cfg.kappa) * cfg.kappa
+    re_all = remeasure(x[:nd], xr[:nd], cfg)
+    require(abs(re_all - first["deviation"]) <= 1e-9,
+            f"{what}: the stream's deviation {first['deviation']} is not "
+            f"within 1e-9 of its re-measure {re_all}")
+    # a pause mid-stream: state_dict through JSON, resumed on the card
+    qd = depths[-1]
+    sc = streaming.StreamingCompressor(cfg, W, queue_depth=qd, device=device)
+    k = len(chunks) // 2
+    before = _feed(sc, chunks, stop_after=k)
+    state = json.loads(json.dumps(sc.state_dict()))
+    sc = streaming.compressor_from_state(cfg, state, device=device)
+    after = _feed(sc, chunks[k + 1:])
+    require(_bits(_concat(before + after, "kept")) == _bits(kept)
+            and _bits(_concat(before + after, "xr")) == _bits(xr)
+            and sc.deviation() == first["deviation"],
+            f"{what}: the stream resumed from its state_dict parts from "
+            f"the uninterrupted one")
+    # into the store, at each depth
+    files = {}
+    for qd, r in runs.items():
+        files[qd], decoded = _stream_store(device, tmp, f"{case}-{qd}", cfg,
+                                           r["wins"])
+        require(_bits(decoded) == _bits(xr),
+                f"{what}: the store decodes other bits than the stream's xr "
+                f"(queue depth {qd})")
+    require(len(set(files.values())) == 1,
+            f"{what}: the store files differ between queue depths")
+    n_windows = len(first["wins"])
+    row = dict(case=case, dataset=name, n=n, window=W, lags=cfg.lags,
+               kappa=cfg.kappa, windows=n_windows, full_windows=full,
+               chunks=len(chunks), tail=first["wins"][-1].x.shape[0],
+               tail_iters=first["wins"][-1].iters,
+               n_kept=int(kept.sum()), cr=n / float(kept.sum()),
+               deviation=first["deviation"], remeasured=re_all,
+               store_bytes=len(files[depths[0]]),
+               depths={str(qd): dict(
+                   wall_s=r["wall_s"], points_per_s=n / r["wall_s"],
+                   batch_calls=r["batch_calls"],
+                   lag_dot_halo_launches=r["halo_launches"],
+                   launches=r["launches"], max_memory_allocated=r["mem"])
+                   for qd, r in runs.items()})
+    if cpu_check and device.type == "cuda":
+        t0 = time.perf_counter()
+        sc = streaming.StreamingCompressor(cfg, W, device="cpu")
+        cpu = _feed(sc, chunks)
+        cpu_kept = _concat(cpu, "kept")
+        same = sum(bool(np.array_equal(a.kept, b.kept))
+                   for a, b in zip(first["wins"], cpu))
+        row.update(cr_cpu=n / float(cpu_kept.sum()), wall_s_cpu=(
+            time.perf_counter() - t0), windows_same_kept_as_cpu=same,
+                   iters=[w.iters for w in first["wins"]],
+                   iters_cpu=[w.iters for w in cpu])
+        require(abs(row["cr"] - row["cr_cpu"]) <= 0.05 * row["cr_cpu"],
+                f"{what}: CR {row['cr']} is not within 5% of the CPU "
+                f"path's {row['cr_cpu']}")
+    return row
+
+
+def phase_stream_mv(device, tmp: Path, C: int = STREAM_MV_COLUMNS,
+                    n: int = 17520, W: int = 4096) -> dict:
+    """``MVStreamingCompressor`` of uk_elec-shaped ``[n, C]`` (seeds as
+    columns): the seeded feed against one chunk (kept mask and ``xr``
+    bits), every column of every compressed window within eps by a
+    float64 re-measure, ``deviations()`` within 1e-9 of each column's
+    from-scratch measure, and the windows through a store read back
+    bit-equal."""
+    name = "uk_elec"
+    cfg = cameo.CameoConfig(eps=EPS, **dataset_cameo_kwargs(name))
+    X = np.ascontiguousarray(batch_series(name, C, n).T)
+    chunks = np.split(X, stream_chunks(n, seed=1))
+    reset_counts()
+    sc = streaming.MVStreamingCompressor(cfg, W, C, device=device)
+    wins, wall, mem = _run_timed(lambda: _feed(sc, chunks), device)
+    counts = read_counts()
+    one = streaming.compress_windowed_mv(X, cfg, W, device=device)
+    kept, xr = _concat(wins, "kept"), _concat(wins, "xr")
+    what = f"stream multivariate [{n}, {C}]"
+    require(_bits(one.kept) == _bits(kept) and _bits(one.xr) == _bits(xr),
+            f"{what}: one chunk gives other windows than the chunked feed")
+    for w in wins:
+        if w.iters == 0:
+            continue
+        for c in range(C):
+            re = remeasure(w.x[:, c], w.xr[:, c], cfg)
+            require(re <= cfg.eps + 1e-9, f"{what}: window at {w.start} "
+                                          f"column {c} re-measures {re}")
+    devs = sc.deviations()
+    for c in range(C):
+        re = remeasure(X[:, c], xr[:, c], cfg)
+        require(abs(re - devs[c]) <= 1e-9, f"{what}: column {c}'s deviation "
+                                           f"{devs[c]} against {re}")
+    data, decoded = _stream_store(device, tmp, "mv", cfg, wins, channels=C)
+    require(_bits(decoded) == _bits(xr),
+            f"{what}: the store decodes other bits than the stream's xr")
+    if device.type == "cuda":
+        for kname in PATHS["rounds"][1]:
+            require(counts[kname] > 0,
+                    f"{what}: kernel {kname} was never launched")
+    return dict(case="multivariate", dataset=name, n=n, C=C, window=W,
+                windows=len(wins), n_kept=int(kept.sum()),
+                cr=n / float(kept.sum()), deviations=devs.tolist(),
+                wall_s=wall, points_per_s=n * C / wall, launches=counts,
+                store_bytes=len(data), max_memory_allocated=mem)
+
+
+def run_streams(device, *, streams=STREAMS, mv=(STREAM_MV_COLUMNS, 17520,
+                                                4096),
+                cpu_check: bool = True, log=print) -> dict:
+    """The streaming phase: each of ``streams`` and the multivariate
+    stream (``mv``: columns, points, window; None to skip), with the
+    telemetry registry on (it changes no result) and the build watermark
+    held flat.  Returns the rows and the registry's stream counters."""
+    import tempfile
+    device = torch.device(device)
+    was = obs.enabled()
+    obs.reset()
+    obs.enable()
+    mark = obs.recompile_watermark()
+    rows = []
+    (ROOT / "build").mkdir(exist_ok=True)
+    try:
+        with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+            for case, name, n, W, depths, one_chunk in streams:
+                row = phase_stream(device, case, name, n, W, depths,
+                                   one_chunk, Path(tmp), cpu_check=cpu_check)
+                rows.append(row)
+                log("stream " + json.dumps(row))
+            if mv:
+                row = phase_stream_mv(device, Path(tmp), *mv)
+                rows.append(row)
+                log("stream " + json.dumps(row))
+        snap = obs.snapshot()
+    finally:
+        obs.OBS.enabled = was
+    require(obs.recompile_watermark() == mark,
+            f"stream: the build watermark moved ({mark} -> "
+            f"{obs.recompile_watermark()}): a kernel was built mid-stream")
+    counters = {k: v for k, v in snap["counters"].items()
+                if k.startswith(("stream.", "cameo."))}
+    return dict(rows=rows, counters=counters, watermark=mark)
+
+
 def _scan_state(device, name: str, rounds: int, length=None):
     """A scan run on ``device`` stepped ``rounds`` rounds (one lane): the
     config, the round functions' arguments, p0, the carry and the next
@@ -1178,6 +1502,7 @@ def run_phases(device, *, uk_length=None, aus_length=None,
                seq_lengths=None, seq_full=(), cpu_check: bool = True,
                batches=BATCHES, kernel_lanes=None,
                prefix_lanes: int = PREFIX_LANES, mv_columns: int = MV_COLUMNS,
+               streams=STREAMS, stream_mv=(STREAM_MV_COLUMNS, 17520, 4096),
                log=print) -> dict:
     """Phases 3-4 on ``device``: each kernel against its plain version at
     both datasets' shapes, one series and lanes (``kernel_lanes``, default
@@ -1186,7 +1511,8 @@ def run_phases(device, *, uk_length=None, aus_length=None,
     ``seq_lengths``, default ``SEQ_LENGTHS``, and at full length for the
     datasets in ``seq_full``, without the CPU run), then the batch phase
     (``batches`` and ``compress_multivariate`` of ``mv_columns`` columns,
-    at the same lengths).  Returns the report."""
+    at the same lengths), then the streaming phase (``streams`` and the
+    multivariate ``stream_mv``).  Returns the report."""
     device = torch.device(device)
     lengths = dict(zip(DATASETS, (uk_length, aus_length)))
     seq_lengths = seq_lengths or SEQ_LENGTHS
@@ -1252,8 +1578,20 @@ def run_phases(device, *, uk_length=None, aus_length=None,
         for kname, c in row["launches"].items():
             totals[kname] += c
     seconds["batch"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    reset_counts()
+    stream = run_streams(device, streams=streams, mv=stream_mv,
+                         cpu_check=cpu_check, log=log)
+    for row in stream["rows"]:
+        for r in (row.get("depths") or {}).values():
+            for kname, c in r["launches"].items():
+                totals[kname] += c
+        for kname, c in (row.get("launches") or {}).items():
+            totals[kname] += c
+    seconds["stream"] = time.perf_counter() - t0
     return dict(kernels=kernels, runs=runs, batches=batch_rows,
-                launches=totals, launch_floor_ms=floor, seconds=seconds)
+                streams=stream, launches=totals, launch_floor_ms=floor,
+                seconds=seconds)
 
 
 def kernel_rows(report) -> list:
@@ -1315,7 +1653,7 @@ def main() -> int:
         print("path " + json.dumps({k: r.get(k) for k in (
             "dataset", "path", "n", "iters", "iters_cpu", "cr", "cr_cpu",
             "cr_backoff", "same_kept", "wall_s", "s_per_iter",
-            "wall_s_cpu")}))
+            "launches_per_iter", "wall_s_cpu")}))
     for r in report["batches"]:
         keys = (("dataset", "B", "n", "rounds", "iters_min", "cr_mean",
                  "wall_s", "loop_wall_s", "lanes_held",
@@ -1324,6 +1662,12 @@ def main() -> int:
                 ("dataset", "C", "n", "iters", "cr", "col_n_kept",
                  "deviations", "wall_s", "max_memory_allocated"))
         print(r["path"] + " " + json.dumps({k: r.get(k) for k in keys}))
+    for r in report["streams"]["rows"]:
+        print("stream " + json.dumps({k: r.get(k) for k in (
+            "case", "n", "window", "windows", "tail", "tail_iters", "cr",
+            "cr_cpu", "windows_same_kept_as_cpu", "deviation", "store_bytes",
+            "wall_s", "points_per_s", "depths", "max_memory_allocated")}))
+    print("stream counters " + json.dumps(report["streams"]["counters"]))
     t0 = time.perf_counter()
     print("lockstep " + json.dumps(scan_lockstep(device)))
     seconds["lockstep"] = time.perf_counter() - t0

@@ -17,7 +17,8 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels.ref import agg_rows, gather_clamped, lane_col
+from repro_torch.kernels.ref import (agg_rows, div_exact, gather_clamped,
+                                    lane_col, row_sum_xla, sqrt_rn)
 
 
 class Aggregates(NamedTuple):
@@ -91,7 +92,7 @@ def acf_from_aggregates(agg, n) -> torch.Tensor:
     var_tail = m * sxl2 - sxl * sxl
     denom2 = var_head * var_tail
     tiny = 1e-30
-    denom = torch.sqrt(torch.clamp_min(denom2, tiny))
+    denom = sqrt_rn(torch.clamp_min(denom2, tiny))
     return torch.where(denom2 > tiny, num / denom, 0.0)
 
 
@@ -145,7 +146,11 @@ def aggregate_series(x: torch.Tensor, kappa: int,
     """``AGG_kappa(X)``: tumbling windows of ``kappa`` points over the last
     axis.
 
-    ``n`` must be divisible by ``kappa`` (callers pad or trim).
+    ``n`` must be divisible by ``kappa`` (callers pad or trim).  The mean
+    and the sum add a window's points in XLA's row-reduce order
+    (``kernels.ref.row_sum_xla``), the JAX reference's, on every device;
+    the mean then divides by ``kappa`` exactly, the op-by-op value (XLA's
+    default compilation multiplies by ``1/kappa`` instead; ROADMAP C1/C2).
     """
     if kappa == 1:
         return x
@@ -154,9 +159,9 @@ def aggregate_series(x: torch.Tensor, kappa: int,
         raise ValueError(f"length {n} not divisible by kappa={kappa}")
     xw = x.reshape(*x.shape[:-1], n // kappa, kappa)
     if agg == "mean":
-        return xw.mean(dim=-1)
+        return div_exact(row_sum_xla(xw), kappa)
     if agg == "sum":
-        return xw.sum(dim=-1)
+        return row_sum_xla(xw)
     if agg == "max":
         return xw.amax(dim=-1)
     if agg == "min":

@@ -67,6 +67,7 @@ from repro_torch.kernels import ops as _ops
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.acf_impact import acf_impact_cuda
 from repro_torch.kernels.ref import take
+from repro_torch.obs import OBS
 
 _NOT_PORTED = "not ported yet (ROADMAP.md, {item})"
 
@@ -172,11 +173,13 @@ def _reconstruct(x_kept_vals: torch.Tensor, alive: torch.Tensor):
 
 
 def _x_to_y_delta(delta_x: torch.Tensor, kappa: int):
+    """The target-series delta: each window's sum in XLA's row-reduce order
+    (``ref.row_sum_xla``), divided by ``kappa`` exactly."""
     if kappa == 1:
         return delta_x
     ny = delta_x.shape[-1] // kappa
-    return _ref.div_exact(
-        delta_x.reshape(*delta_x.shape[:-1], ny, kappa).sum(dim=-1), kappa)
+    return _ref.div_exact(_ref.row_sum_xla(
+        delta_x.reshape(*delta_x.shape[:-1], ny, kappa)), kappa)
 
 
 def _top_k_lowest(impact: torch.Tensor, k: int):
@@ -417,8 +420,7 @@ def _round_fns(cfg: CameoConfig, nb: int, n_valid: torch.Tensor,
             order = torch.argsort(gi, dim=-1, stable=True)
             gs = torch.gather(gi, 1, order)
             finite_g = torch.isfinite(gs)
-            pred = dev_[:, None] + torch.cumsum(
-                torch.where(finite_g, gs, 0.0), dim=-1)
+            pred = _scan_pred(dev_, gs, finite_g, cfg.backend)
             kidx = ar0 + 1
             rank_pos = torch.zeros((B, k_rows), dtype=torch.int32,
                                    device=dev).scatter(1, order,
@@ -597,6 +599,15 @@ def _deviation_grad(cfg: CameoConfig, tbl: torch.Tensor, ny, p0):
     return g
 
 
+def _scan_pred(dev_: torch.Tensor, gs: torch.Tensor, finite_g: torch.Tensor,
+               backend: str) -> torch.Tensor:
+    """The linearized branch's predicted deviation of each prefix of the
+    sorted marginals ``gs [B, K]``: ``dev + cumsum(finite gs)``, the sums in
+    XLA's cumsum order (``ops.prefix_sum``), the JAX reference's."""
+    return dev_[:, None] + _ops.prefix_sum(torch.where(finite_g, gs, 0.0),
+                                           backend)
+
+
 def greedy_take(prefix_devs_fn, y, dyws, ystarts, ok, tbl, p0, ny, eps, *,
                 L: int, measure: str):
     """The greedy scan's decisions for one round, lane by lane (``y [B,
@@ -621,7 +632,7 @@ def greedy_take(prefix_devs_fn, y, dyws, ystarts, ok, tbl, p0, ny, eps, *,
     return take_g, take_pre, more
 
 
-def _run_rounds(carry, probe, body):
+def _run_rounds(carry, probe, body, occupancy=None):
     """Drive the round loop over the carry's lanes.
 
     Each round the host reads the ``[B, 2]`` probe in one device-to-host
@@ -642,21 +653,29 @@ def _run_rounds(carry, probe, body):
     the module docstring) and runs each group's branch alone, and nothing
     compiles, so it needs neither the switches nor the buckets nor the
     chunking.
+
+    ``occupancy``, a list ``[live, slots]``, if given, accumulates the
+    lanes live and the lane slots launched (see :func:`_round_step`).
     """
     while True:
-        carry, live = _round_step(carry, probe, body)
+        carry, live = _round_step(carry, probe, body, occupancy)
         if not live:
             return carry
 
 
-def _round_step(carry, probe, body):
+def _round_step(carry, probe, body, occupancy=None):
     """One round of ``_run_rounds``: ``(carry, whether any lane was
-    live)``."""
+    live)``.  ``occupancy`` (``[live, slots]``) gains the round's live
+    lanes and B slots for each body call (each call launches every kernel
+    once, for at most the B lanes of the batch)."""
     B = carry[0].shape[0]
     groups = {}
     for lane, (go, small) in enumerate(probe(carry).tolist()):
         if go:
             groups.setdefault(bool(small), []).append(lane)
+    if occupancy is not None:
+        occupancy[0] += sum(len(g) for g in groups.values())
+        occupancy[1] += B * len(groups)
     if len(groups) == 1 and len(next(iter(groups.values()))) == B:
         return body(carry, small=next(iter(groups))), True
     dev = carry[0].device
@@ -708,9 +727,11 @@ def _rounds_result(carry, n_valid: torch.Tensor, p0: torch.Tensor,
 
 
 def _compress_lanes(xs: torch.Tensor, cfg: CameoConfig,
-                    pad_to: Optional[int]) -> CompressResult:
+                    pad_to: Optional[int],
+                    observe: bool = False) -> CompressResult:
     """Rounds-mode compression of the equal-length series ``xs [B, n]``
-    (already on their device), one lane each."""
+    (already on their device), one lane each.  ``observe`` records the
+    batch counters (``cameo.batch_*``) when telemetry is on."""
     dev = xs.device
     dt = cfg.tdtype()
     B, n = xs.shape
@@ -725,7 +746,13 @@ def _compress_lanes(xs: torch.Tensor, cfg: CameoConfig,
         cfg, nb, n_valid,
         torch.full((B,), min_alive, dtype=torch.int32, device=dev),
         torch.full((B,), eps, dtype=dt, device=dev), p0)
-    res = _rounds_result(_run_rounds(carry, probe, body), n_valid, p0, cfg)
+    occupancy = [0, 0] if observe and OBS.enabled else None
+    res = _rounds_result(_run_rounds(carry, probe, body, occupancy),
+                         n_valid, p0, cfg)
+    if occupancy is not None:
+        OBS.inc("cameo.batch_rounds_total", int(torch.sum(res.iters)))
+        OBS.gauge("cameo.batch_lane_occupancy",
+                  occupancy[0] / occupancy[1] if occupancy[1] else 1.0)
     if nb == n:
         return res
     return res._replace(kept=res.kept[:, :n], xr=res.xr[:, :n])
@@ -942,6 +969,15 @@ def compress_batch(xs, cfg: CameoConfig, mesh=None, *,
     A tail remainder is trimmed so the length is divisible by ``kappa``;
     ``pad_to`` forces at least that shape bucket.  ``mesh`` (sharding the
     batch over devices) is not ported yet.
+
+    With telemetry on it records the JAX package's batch counters under
+    their names: ``cameo.batch_rounds_total`` (the lanes' rounds, summed)
+    and the gauge ``cameo.batch_lane_occupancy``, defined on the port's
+    driver as the lanes live over the lane slots launched, summed over
+    rounds, where each body call (one launch of every kernel) counts B
+    slots: 1.0 while every lane runs in one group, less once lanes finish
+    or split into the two groups.  JAX counts the bucket slots of its
+    chunked driver instead, so the two packages' values differ.
     """
     if mesh is not None:
         raise NotImplementedError(
@@ -959,7 +995,7 @@ def compress_batch(xs, cfg: CameoConfig, mesh=None, *,
     if cfg.kappa > 1:
         xs = xs[:, :(xs.shape[1] // cfg.kappa) * cfg.kappa]
     return _compress_lanes(xs.to(dtype=cfg.tdtype(), device=dev), cfg,
-                           pad_to)
+                           pad_to, observe=True)
 
 
 class MVCompressResult(NamedTuple):
@@ -1092,14 +1128,22 @@ def compress_multivariate(X, cfg: CameoConfig, *, eps_c=None,
         if not bad:
             break
         if retries >= max_retries:
+            if OBS.enabled:
+                OBS.inc("mvar.keep_all_columns", len(bad))
             for c in bad:     # last resort: the column keeps everything
                 masks[c] = np.ones(n, bool)
             continue          # keep-all columns measure deviation 0 next pass
         retries += 1
+        if OBS.enabled:
+            OBS.inc("mvar.repair_halvings", len(bad))
         eps_work[bad] = eps_work[bad] / 2.0
         new_masks, it = _column_masks(X, cfg, eps_work, bad, pad_to, device)
         masks.update(new_masks)
         iters += it
+    if OBS.enabled:
+        for c in range(C):
+            if np.isfinite(budget[c]) and budget[c] > 0:
+                OBS.observe("mvar.eps_headroom", float(devs[c]) / budget[c])
     # per-column counts of the masks that went into the union
     col_n_kept = np.array([int(masks[c].sum()) for c in range(C)])
     return MVCompressResult(

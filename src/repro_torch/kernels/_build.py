@@ -9,6 +9,10 @@ as ``c_int``, and every entry point returns ``cudaGetLastError()``.
 Nothing here runs at import.  ``csrc/launch_floor.cu`` is built with the
 rest though no path launches it: an empty kernel that ``chip_smoke.py``
 and the A/B tool time as the least a launch takes.
+
+The builder is registered with ``repro_torch.obs`` as ``kernels.build``:
+its ``_cache_size()`` counts the libraries built in this process, so the
+recompile watermark's delta around a region counts ``nvcc`` builds in it.
 """
 from __future__ import annotations
 
@@ -19,6 +23,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+from repro_torch.obs import OBS
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -49,6 +55,7 @@ class _Builder:
         self._libs = None
         self.seconds = None     # wall time of the one build
         self.logs = {}          # source stem -> nvcc/ptxas output
+        self.built = 0          # libraries built in this process
 
     def _build(self):
         nvcc = _nvcc()
@@ -72,6 +79,7 @@ class _Builder:
                 failed.append(f"{stem}.cu (exit {proc.returncode}):\n{log}")
             else:
                 os.replace(tmp, out)
+                self.built += 1
         self.seconds = time.perf_counter() - t0
         if failed:
             raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
@@ -83,8 +91,14 @@ class _Builder:
                 self._libs = self._build()
             return self._libs[stem]
 
+    def _cache_size(self) -> int:
+        """Libraries built in this process (the recompile watermark's
+        count for ``kernels.build``)."""
+        return self.built
+
 
 _BUILDER = _Builder()
+OBS.register_jit("kernels.build", _BUILDER)
 
 
 def build_all() -> dict:

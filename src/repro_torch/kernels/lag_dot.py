@@ -3,10 +3,13 @@
 
 ``lag_dot_cuda`` launches the hand-written kernel of ``csrc/lag_dot.cu``
 for card tensors and computes the plain version, :func:`lag_dot_plain`,
-for CPU tensors.  The self (default), cross (``b=``) and halo'd
-(``halo=``, an L-point continuation of ``b`` past the chunk end) forms all
-read one extended operand ``b_ext`` of length ``n + L``: the plain version
-builds it, the kernel reads ``b`` and ``halo`` in place.
+for CPU tensors.  The two sum in different orders (the kernel over time
+tiles, the plain version left to right, as the JAX reference does), so
+they agree to rounding, not bit for bit.  The self (default), cross
+(``b=``) and halo'd (``halo=``, an L-point continuation of ``b`` past the
+chunk end) forms all read one extended operand ``b_ext`` of length
+``n + L``: the plain version builds it, the kernel reads ``b`` and
+``halo`` in place.
 
 Lanes.  The self and cross forms also take a batch of series ``a [B, n]``
 (and ``b [B, n]``) and give ``[B, L]``: one launch, a grid row of time
@@ -37,12 +40,22 @@ def extended_operand(a: torch.Tensor, b=None, halo=None, *,
 
 def lag_dot_plain(a: torch.Tensor, b=None, halo=None, *,
                   L: int) -> torch.Tensor:
-    """Plain PyTorch version: one ``[n] x [n, L]`` product against a shift
-    view (``ref.lag_xdot``): lane by lane for the self form of ``a [B,
-    n]``, a batched product for the cross form."""
+    """Plain PyTorch version: each lag's products ``a_t * b_ext_{t+l}``
+    summed one add at a time over t, first to last (``ref.chain_sum``):
+    the order in which the JAX reference's ``a @ shifted`` sums, compiled
+    op by op, so the Eq. 7 tables equal its bits.  Lane by lane for the
+    self form of ``a [B, n]``; card tensors are summed on the CPU."""
+    if a.device.type != "cpu":
+        # the oracle of the card's kernel: a chain of n adds has no fast
+        # parallel form, so it runs on the CPU and comes back
+        return lag_dot_plain(a.cpu(), None if b is None else b.cpu(),
+                             None if halo is None else halo.cpu(),
+                             L=L).to(a.device)
     if a.dim() == 2 and b is None and halo is None:
         return torch.stack([lag_dot_plain(row, L=L) for row in a])
-    return _ref.lag_xdot(a, extended_operand(a, b, halo, L=L), L=L)
+    b_ext = extended_operand(a, b, halo, L=L)
+    shifted = b_ext.unfold(-1, a.shape[-1], 1)[..., 1:L + 1, :]
+    return _ref.chain_sum(a.unsqueeze(-2) * shifted)
 
 
 # scratch of the kernel's cross-block sum, per (stream, dtype, size): the
@@ -106,7 +119,11 @@ def lag_dot_cuda(a: torch.Tensor, b=None, halo=None, *,
                     n, L, B, stream),
                  "lag_dot")
     lag_dot_cuda.launches += 1
+    if halo is not None:
+        lag_dot_cuda.halo_launches += 1
     return out
 
 
 lag_dot_cuda.launches = 0
+# the launches of the halo form among them (the stream's running aggregates)
+lag_dot_cuda.halo_launches = 0

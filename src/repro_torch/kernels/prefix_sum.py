@@ -33,6 +33,7 @@ _BASE = 16
 _TILE = 4096
 _MAX_CLUSTER = 8
 _MAX_N = 4096 * _TILE
+_MAX_ROWS = 65535
 
 
 def _chain(v: torch.Tensor) -> torch.Tensor:
@@ -74,17 +75,22 @@ def prefix_sum_cuda(x: torch.Tensor) -> torch.Tensor:
                          f"{tuple(x.shape)}")
     n = x.shape[-1]
     rows = x.numel() // n
-    if n > _MAX_N or rows > 65535:
-        raise ValueError(f"prefix_sum takes rows of at most {_MAX_N} values "
-                         f"and at most 65,535 rows, got {tuple(x.shape)}")
+    if n > _MAX_N:
+        raise ValueError(f"prefix_sum takes rows of at most {_MAX_N} values, "
+                         f"got {tuple(x.shape)}")
     x = x.contiguous()
     out = torch.empty_like(x)
     cluster = min(_MAX_CLUSTER, -(-n // _TILE))
     stream = torch.cuda.current_stream(x.device).cuda_stream
     fn = _build.bind("prefix_sum", _SYMBOL[x.dtype], 2, 3)
-    _build.check(fn(x.data_ptr(), out.data_ptr(), n, rows, cluster, stream),
-                 "prefix_sum")
-    prefix_sum_cuda.launches += 1
+    size = x.element_size()
+    # a launch takes at most 65,535 rows (the grid's y extent)
+    for r0 in range(0, rows, _MAX_ROWS):
+        r = min(_MAX_ROWS, rows - r0)
+        _build.check(fn(x.data_ptr() + r0 * n * size,
+                        out.data_ptr() + r0 * n * size, n, r, cluster,
+                        stream), "prefix_sum")
+        prefix_sum_cuda.launches += 1
     return out
 
 

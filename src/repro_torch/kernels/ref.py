@@ -14,6 +14,7 @@ exactly as they compute the lane alone.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -64,6 +65,33 @@ def gather_clamped(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return take(x, idx.clamp(0, n - 1))
 
 
+class _SqrtRN(torch.autograd.Function):
+    """IEEE square root of a CPU tensor (numpy's), with torch's derivative
+    ``g / (2 * sqrt(x))``."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.from_numpy(np.asarray(np.sqrt(x.detach().numpy())))
+        ctx.save_for_backward(out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        (out,) = ctx.saved_tensors
+        return g / (2 * out)
+
+
+def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
+    """The correctly rounded square root on every device, as XLA and the
+    CUDA kernels compute it.  On the card that is ``torch.sqrt``; torch's
+    vectorized CPU square root is not correctly rounded (1 ulp off for
+    about 0.7% of float32 and float64 inputs), so a CPU tensor takes
+    numpy's."""
+    if x.device.type != "cpu":
+        return torch.sqrt(x)
+    return _SqrtRN.apply(x)
+
+
 def acf_from_moments(sx, sxl, sx2, sxl2, sxx, m):
     """Eq. 2: normalized per-lag ACF from the five moment sums.
 
@@ -73,7 +101,7 @@ def acf_from_moments(sx, sxl, sx2, sxl2, sxx, m):
     den2 = (m * sx2 - sx * sx) * (m * sxl2 - sxl * sxl)
     # a Python scalar, not a device tensor: no host-to-device copy per call
     tiny = 1e-30
-    den = torch.sqrt(torch.clamp_min(den2, tiny))
+    den = sqrt_rn(torch.clamp_min(den2, tiny))
     return torch.where(den2 > tiny, num / den, 0.0)
 
 
@@ -91,6 +119,70 @@ def interior_windows(starts: torch.Tensor, W: int, L: int, ny):
     lag 1 (``s >= L`` and ``s + W - 1 <= ny - 1 - L``): the Eq. 9 window
     kernels' fast-path test, per start."""
     return (starts >= L) & (starts + W - 1 <= ny - 1 - L)
+
+
+# XLA's CPU row-reduce (``x.reshape(-1, k).sum(1)`` compiled, fused or
+# not, in either float type and whatever the row count) sums a row of up to
+# 32 values one add at a time from +0.  A longer row is a reduce window of
+# 32 values, stride 32, over the row padded with zeros to a multiple of 32
+# (the smaller half of the padding in front): each window summed the same
+# way, then the window sums reduced by the same rule, recursively.  So up
+# to 1,024 values the rows split into ceil(k / 32) blocks, the middle ones
+# of 32 values and the first and last sharing the rest (the first takes
+# the odd one), added first to last.  Probed over k = 1..128 and held to
+# 18,432.
+_XLA_ROW_BLOCK = 32
+
+
+def xla_row_blocks(k: int) -> list:
+    """The block sizes of one level of XLA's row-reduce over ``k``
+    values, in order (the block sums are reduced by the same rule)."""
+    if k <= _XLA_ROW_BLOCK:
+        return [k]
+    pad = -k % _XLA_ROW_BLOCK
+    lo = pad // 2
+    nw = (k + pad) // _XLA_ROW_BLOCK
+    return ([_XLA_ROW_BLOCK - lo] + [_XLA_ROW_BLOCK] * (nw - 2)
+            + [_XLA_ROW_BLOCK - (pad - lo)])
+
+
+def chain_sum(v: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis one add at a time from +0, in ``v``'s type.
+    A float64 CPU tensor takes ``torch.cumsum``'s last value, which the CPU
+    computes by exactly these adds (one op however long the axis;
+    ``tests/test_torch_sums.py`` holds it to the chain); elsewhere one add
+    a column."""
+    if v.device.type == "cpu" and v.dtype == torch.float64:
+        return torch.cumsum(v, -1)[..., -1] + 0.0
+    acc = v[..., 0] + 0.0
+    for j in range(1, v.shape[-1]):
+        acc = acc + v[..., j]
+    return acc
+
+
+def row_sum_xla(xw: torch.Tensor) -> torch.Tensor:
+    """``xw [..., k]`` summed over the last axis in XLA's row-reduce order
+    (see ``xla_row_blocks``): exact elementwise adds over strided columns,
+    the blocks side by side, then the block sums by the same rule, so the
+    card's sums equal the CPU's and the JAX reference's bit for bit.  A
+    block shorter than the longest is padded with zeros, which add nothing
+    to a sum begun at +0."""
+    k = xw.shape[-1]
+    sizes = xla_row_blocks(k)
+    if len(sizes) == 1:
+        return chain_sum(xw)
+    w = max(sizes)
+    if all(b == w for b in sizes):
+        blocks = xw.reshape(*xw.shape[:-1], len(sizes), w)
+    else:
+        cols, start = [], 0
+        for b in sizes:
+            cols += list(range(start, start + b)) + [k] * (w - b)
+            start += b
+        idx = torch.tensor(cols, device=xw.device)
+        blocks = F.pad(xw, (0, 1))[..., idx].reshape(*xw.shape[:-1],
+                                                     len(sizes), w)
+    return row_sum_xla(chain_sum(blocks))
 
 
 def sum_in_order(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -127,7 +219,7 @@ def measure_rows(rows: torch.Tensor, p0: torch.Tensor,
     if measure == "mae":
         return div_exact(sum_in_order(torch.abs(diff)), L)
     if measure == "rmse":
-        return torch.sqrt(div_exact(sum_in_order(diff * diff), L))
+        return sqrt_rn(div_exact(sum_in_order(diff * diff), L))
     if measure == "cheb":
         return torch.amax(torch.abs(diff), dim=-1)
     raise ValueError(measure)

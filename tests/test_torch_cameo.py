@@ -298,6 +298,12 @@ def test_port_and_chip_smoke_import_no_jax():
         "from repro_torch.kernels import ops, ref, fused_round, lag_dot, "
         "acf_impact, _build\n"
         "from repro_torch.data import synthetic\n"
+        "import repro_torch.obs, repro_torch.obs.registry, "
+        "repro_torch.obs.trace\n"
+        "from repro_torch.core import streaming\n"
+        "from repro_torch.store import (_scan, blocks, codec, maintenance, "
+        "query, store, wal)\n"
+        "from repro_torch.store import CameoStore, StreamSession\n"
         "import chip_smoke\n"
         "from chip_smoke import run_phases, remeasure\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
@@ -364,7 +370,10 @@ def test_chip_smoke_phases_rehearsal():
         batches=(("uk_elec", 3, True), ("aus_elec", 2, True),
                  ("uk_elec", 4, False)),
         kernel_lanes={"uk_elec": 3, "aus_elec": 2}, prefix_lanes=2,
-        mv_columns=2, log=lambda s: None)
+        mv_columns=2,
+        streams=(("uk_elec", "uk_elec", 1200, 256, (1, 3), True),
+                 ("aus_elec", "aus_elec", 2000, 480, (1, 2), False)),
+        stream_mv=(2, 900, 256), log=lambda s: None)
     # prefix_sum's one row and pair of rows (and, with uk_elec, its pairs
     # of four more lengths); the window kernels: the main cases, then a
     # boundary-heavy one each (acf_window_impact's ranking chunk at kappa =
@@ -417,6 +426,19 @@ def test_chip_smoke_phases_rehearsal():
         (d, p) for p in ("rounds", "scan", "sequential")
         for d in ("uk_elec", "aus_elec")]
     assert report["launches"] == dict.fromkeys(chip_smoke.WRAPPERS, 0)
+    # the streaming phase: both streams and the multivariate one held, the
+    # aus_elec tail (80 points, one target point) kept verbatim
+    st = report["streams"]
+    assert [r["case"] for r in st["rows"]] == ["uk_elec", "aus_elec",
+                                               "multivariate"]
+    uk, aus = st["rows"][:2]
+    assert uk["windows"] == 5 and uk["full_windows"] == 4
+    assert uk["tail"] == 1200 - 4 * 256 and uk["tail_iters"] > 0
+    assert aus["tail"] == 80 and aus["tail_iters"] == 0
+    assert set(uk["depths"]) == {"1", "3"}
+    assert uk["depths"]["3"]["batch_calls"] >= 1
+    assert uk["depths"]["1"]["batch_calls"] == 0
+    assert st["counters"]["stream.windows"] > 0
     json.dumps(report)
     out = subprocess.run([sys.executable, os.path.join(ROOT, "chip_smoke.py")],
                          capture_output=True, text=True, timeout=120,

@@ -306,7 +306,7 @@ def _acf_impact_schedule(y, dval, table, p0, *, L, measure, ny, kappa,
         acc = torch.where(acc > t, acc, t) if measure == "cheb" else acc + t
     if measure != "cheb":
         acc = t_ref.div_exact(acc, L)
-        acc = torch.sqrt(acc) if measure == "rmse" else acc
+        acc = t_ref.sqrt_rn(acc) if measure == "rmse" else acc
     return acc, lanes
 
 

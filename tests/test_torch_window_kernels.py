@@ -89,7 +89,7 @@ def _reduce(terms, measure, L):
     if measure == "cheb":
         return acc
     acc = acc / torch.full((), L, dtype=terms.dtype)
-    return torch.sqrt(acc) if measure == "rmse" else acc
+    return t_ref.sqrt_rn(acc) if measure == "rmse" else acc
 
 
 def _chain(terms, start=None):
