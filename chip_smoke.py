@@ -72,6 +72,24 @@ Phases, each of which fails the run (non-zero exit) on a wrong result:
    the CR within 5% of the same stream on the CPU; wall s, points per
    second, ``lag_dot`` halo launches and ``compress_batch`` calls
    reported;
+   Then the facade phase (``repro_torch.api``, ``repro_torch.server`` and
+   ``repro_torch.serving.ts_service`` on the card, ``run_facade``):
+   ``api.open(path, cfg, device="cuda")``'s ``write`` of uk_elec and
+   aus_elec at full length, their file bytes equal to
+   ``CameoStore.append_series`` of the port's own ``compress()``; the
+   pushdown mean, variance, ACF and PACF over [1,000, 16,000) within
+   their bounds of the exact statistics; ``write_batch`` of 16 uk_elec
+   stand-ins as one ``compress_batch``, lanes 0, 7 and 15 stored as solo
+   writes store them; a multivariate ``[17,520, 4]`` write; a scan and a
+   sequential write; an ``IngestServer`` (small sealed blocks, background
+   compaction) with four sessions of 17,520 points, two tenants, pushed
+   from four host threads at once, every series' blocks and entry equal
+   to the same sessions run one after another, a push past the "acme"
+   tenant's quota refused before the journal, ``stats()`` and the
+   ``/metrics`` text counting the pushes and points, and a
+   ``resume=True`` reopen answering the same; the service shim's 8
+   submits byte-equal to ``write_batch``; every kernel launched; a
+   ``facade step`` line a step and a ``facade {...}`` line;
 5. the lock-step check — a scan round on uk_elec from one carry on the
    card: the greedy branch with the prefix_devs kernel and with its plain
    version must take the same candidates; then the seconds of each phase
@@ -93,7 +111,9 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -106,8 +126,9 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch import obs  # noqa: E402
 from repro_torch.core import cameo  # noqa: E402
 from repro_torch.core import streaming  # noqa: E402
-from repro_torch.core.acf import (acf_from_aggregates, aggregate_series,  # noqa: E402
-                                  extract_aggregates)
+from repro_torch.core.acf import (acf, acf_from_aggregates,  # noqa: E402
+                                  aggregate_series, extract_aggregates,
+                                  pacf_from_acf)
 from repro_torch.data.synthetic import (dataset_cameo_kwargs,  # noqa: E402
                                         make_dataset)
 from repro_torch.kernels import _build  # noqa: E402
@@ -1160,18 +1181,19 @@ def _bits(a) -> bytes:
     return np.ascontiguousarray(a).tobytes()
 
 
-def _count_batches():
-    """Count ``compress_batch`` calls made by the streaming module (a drain
-    of several windows is one)."""
+def _count_batches(module=streaming):
+    """Count ``compress_batch`` calls made by ``module`` (the streaming
+    module: a drain of several windows is one; the façade: a
+    ``write_batch`` group is one)."""
     calls = [0]
-    real = streaming.compress_batch
+    real = module.compress_batch
 
     def counted(*a, **kw):
         calls[0] += 1
         return real(*a, **kw)
 
-    streaming.compress_batch = counted
-    return calls, lambda: setattr(streaming, "compress_batch", real)
+    module.compress_batch = counted
+    return calls, lambda: setattr(module, "compress_batch", real)
 
 
 def _stream_store(device, tmp: Path, tag: str, cfg, wins, channels=1):
@@ -1409,6 +1431,336 @@ def run_streams(device, *, streams=STREAMS, mv=(STREAM_MV_COLUMNS, 17520,
     counters = {k: v for k, v in snap["counters"].items()
                 if k.startswith(("stream.", "cameo."))}
     return dict(rows=rows, counters=counters, watermark=mark)
+
+
+# ---------------------------------------------------------------------------
+# the facade phase: api/, server/ and serving/ts_service.py
+# ---------------------------------------------------------------------------
+
+# the facade phase's sizes: the datasets' full lengths, write_batch's B and
+# the lanes held against solo writes, the multivariate columns, the
+# sequential write's length (it pops one point at a time, a few ms each on
+# the card), the server's sessions (uk_elec stand-ins, seeds 0..3, the first
+# two on the default tenant, the others on "acme") and the service's
+# submits
+FACADE = dict(uk_n=17520, aus_n=230688, batch_B=16, batch_held=(0, 7, 15),
+              mv_C=4, seq_n=1024, server_n=17520, sessions=4,
+              service_B=8, query=(1000, 16000))
+SERVER_PLAN = (("", "m0"), ("", "m1"), ("acme", "m2"), ("acme", "m3"))
+
+
+def _series_facts(store, sid: str):
+    """One series as stored, wherever it lies in its file: its block
+    bodies, their spans and sizes, and its catalog entry but the blocks'
+    offsets."""
+    entry = store.series_meta(sid)
+    bodies = [bytes(b) for b in store._read_bodies(entry["blocks"])]
+    blocks = [(b["nbytes"], b["t0"], b["t1"]) for b in entry["blocks"]]
+    rest = {k: v for k, v in entry.items() if k != "blocks"}
+    return bodies, blocks, json.dumps(rest, sort_keys=True, default=str)
+
+
+def _query_holds(what: str, s, x: np.ndarray, a: int, b: int, L: int):
+    """The pushdown answers over ``[a, b)`` against the exact statistics:
+    mean and variance of the original series (the store keeps residual
+    moments), ACF and PACF of the decoded window, each within its bound.
+    Returns the answers' largest error over bound."""
+    xr = s.window(a, b)
+    r_exact = acf(torch.from_numpy(np.ascontiguousarray(xr)), L)
+    exact = dict(mean=x[a:b].mean(), var=x[a:b].var(), acf=r_exact.numpy(),
+                 pacf=pacf_from_acf(r_exact).numpy())
+    worst = 0.0
+    for kind, want in exact.items():
+        v, bound = getattr(s, kind)(a, b)
+        err = np.abs(np.asarray(v) - want)
+        require(bool(np.all(err <= bound)),
+                f"{what}: {kind} over [{a}, {b}) is off by {err.max()} "
+                f"against a bound of {np.min(bound)}")
+        worst = max(worst, float(np.max(err / np.maximum(bound, 1e-300))))
+    return worst
+
+
+def _serve(device, path: Path, cfg, feeds, n: int, quota: int,
+           concurrent: bool):
+    """The server's sessions (``SERVER_PLAN``), their feeds in seeded
+    chunks, one after another or from one host thread each at once; then
+    the background compaction drained.  Returns (server, wall s, pushes)."""
+    from repro_torch.server import IngestServer, ServerConfig
+    srv = IngestServer(str(path), cfg,
+                       ServerConfig(seal_block_len=512, auto_compact=True),
+                       device=device)
+    srv.register_tenant("acme", eps=5e-2, max_points=quota)
+    chunks = [np.split(feeds[i], stream_chunks(n, seed=i))
+              for i in range(len(SERVER_PLAN))]
+    start = threading.Barrier(len(SERVER_PLAN)) if concurrent else None
+    errors = []
+
+    def feed(i):
+        tenant, series = SERVER_PLAN[i]
+        try:
+            if start is not None:
+                start.wait(timeout=60)
+            with srv.session(series, tenant=tenant) as sess:
+                for c in chunks[i]:
+                    sess.push(c)
+        except Exception as e:       # noqa: BLE001 — reported below
+            errors.append(f"{tenant}/{series}: {e!r}")
+
+    def run():
+        if not concurrent:
+            for i in range(len(SERVER_PLAN)):
+                feed(i)
+        else:
+            threads = [threading.Thread(target=feed, args=(i,))
+                       for i in range(len(SERVER_PLAN))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=600)
+            require(not any(t.is_alive() for t in threads),
+                    "server: a producer thread hung")
+        srv.drain_compaction()
+
+    _, wall, _ = _run_timed(run, torch.device(device))
+    require(not errors, f"server: a session failed: {errors}")
+    return srv, wall, sum(len(c) for c in chunks)
+
+
+def phase_facade(device, tmp: Path, sizes=None, log=print) -> dict:
+    """The port's facade on ``device`` at full width (``FACADE``), with the
+    telemetry registry on: ``api.open(...).write`` of uk_elec and aus_elec
+    (their bytes equal ``CameoStore.append_series`` of ``compress()``),
+    the pushdown answers' bounds, ``write_batch`` (one ``compress_batch``;
+    held lanes equal solo writes), a multivariate write, a scan and a
+    sequential write; the ingest server's sessions from one host thread
+    each, held to the same sessions run one after another (every series'
+    blocks and entry), its quota refusal before the journal, its counters,
+    its compaction and a ``resume=True`` reopen answering the same; the
+    service shim's submits equal to ``write_batch``.  Every kernel is
+    launched in the phase (on the card).  Returns the steps."""
+    from repro_torch import api
+    from repro_torch.server import QuotaExceeded, tenant_sid
+    from repro_torch.serving.ts_service import (TimeSeriesService,
+                                                TsServiceConfig)
+    device = torch.device(device)
+    z = dict(FACADE, **(sizes or {}))
+    a, b = z["query"]
+    steps = {}
+
+    def step(key, n, wall, path=None, **holds):
+        steps[key] = dict(n=n, wall_s=wall, points_per_s=n / wall,
+                          file_bytes=Path(path).stat().st_size
+                          if path else None, **holds)
+        log(f"facade step {key} " + json.dumps(steps[key]))
+
+    uk = _path_cfg("uk_elec", "rounds")[0]
+    reset_counts()
+    # one-shot writes at full width, held to the store path they replace
+    for name, n in (("uk_elec", z["uk_n"]), ("aus_elec", z["aus_n"])):
+        cfg = _path_cfg(name, "rounds")[0]
+        x = batch_series(name, 1, n)[0]
+        path = tmp / f"write_{name}.cameo"
+
+        def write():
+            with api.open(str(path), cfg, mode="w", device=device) as ds:
+                return ds.write(name, x)
+
+        entry, wall, _ = _run_timed(write, device)
+        ref = tmp / f"append_{name}.cameo"
+        with CameoStore.create(str(ref), device=device) as st:
+            st.append_series(name, cameo.compress(x, cfg, device=device),
+                             cfg, x=x)
+        require(path.read_bytes() == ref.read_bytes(),
+                f"facade: write {name} stores other bytes than "
+                "append_series of compress()")
+        worst = None
+        if name == "uk_elec":
+            with api.open(str(path), device=device) as ds:
+                worst = _query_holds(f"facade {name}", ds.series(name), x,
+                                     a, min(b, n - 1), cfg.lags)
+        step(f"write {name}", x.shape[0], wall, path,
+             cr=x.shape[0] / entry["n_kept"], deviation=entry["deviation"],
+             bytes_equal_append=True, query_err_over_bound=worst)
+    # write_batch: one compress_batch, held lanes equal solo writes
+    xs = batch_series("uk_elec", z["batch_B"], z["uk_n"])
+    items = {f"b{i}": xs[i] for i in range(xs.shape[0])}
+    path = tmp / "batch.cameo"
+
+    def write_batch():
+        with api.open(str(path), uk, mode="w", device=device) as ds:
+            return ds.write_batch(items)
+
+    calls, restore = _count_batches(api.dataset)
+    try:
+        _, wall, _ = _run_timed(write_batch, device)
+    finally:
+        restore()
+    require(calls[0] == 1, f"facade: write_batch made {calls[0]} "
+                           "compress_batch calls, not one")
+    solo = tmp / "solo.cameo"
+    held = [f"b{i}" for i in z["batch_held"] if i < xs.shape[0]]
+    with api.open(str(solo), uk, mode="w", device=device) as ds:
+        for sid in held:
+            ds.write(sid, items[sid])
+    with CameoStore.open(str(path), device=device) as sa, \
+            CameoStore.open(str(solo), device=device) as sb:
+        for sid in held:
+            require(_series_facts(sa, sid) == _series_facts(sb, sid),
+                    f"facade: write_batch lane {sid} is not its solo write")
+    step("write_batch uk_elec", xs.size, wall, path, B=xs.shape[0],
+         compress_batch_calls=calls[0], lanes_equal_solo=len(held))
+    # a multivariate series, a scan and a sequential write
+    X = np.ascontiguousarray(batch_series("uk_elec", z["mv_C"], z["uk_n"]).T)
+    path = tmp / "mv.cameo"
+
+    def write_mv():
+        with api.open(str(path), uk, mode="w", device=device) as ds:
+            return ds.write("mv", X)
+
+    entry, wall, _ = _run_timed(write_mv, device)
+    with api.open(str(path), device=device) as ds:
+        s = ds.series("mv")
+        xr = s.window()
+        idx, _ = s.kept()
+    require(xr.shape == X.shape and np.array_equal(xr[idx], X[idx]),
+            "facade: the multivariate series decodes other kept values")
+    require(max(entry["deviations"]) <= uk.eps + 1e-12,
+            f"facade: multivariate deviations {entry['deviations']} > eps")
+    step("write multivariate", X.size, wall, path, C=X.shape[1],
+         deviations=list(entry["deviations"]), cr=X.shape[0] / len(idx))
+    for kind, n in (("scan", z["uk_n"]), ("sequential", z["seq_n"])):
+        cfg = _path_cfg("uk_elec", kind)[0]
+        x = batch_series("uk_elec", 1, n)[0]
+        path = tmp / f"{kind}.cameo"
+
+        def write_kind():
+            with api.open(str(path), cfg, mode="w", device=device) as ds:
+                return ds.write(kind, x)
+
+        entry, wall, _ = _run_timed(write_kind, device)
+        with api.open(str(path), device=device) as ds:
+            s = ds.series(kind)
+            kept = np.zeros(n, bool)
+            kept[s.kept()[0]] = True
+            check_guarantee(f"facade {kind}", x, s.window(), kept,
+                            entry["deviation"], cfg)
+        step(f"write {kind} uk_elec", n, wall, path,
+             cr=n / entry["n_kept"], deviation=entry["deviation"])
+    # the ingest server: four sessions from four host threads, against the
+    # same sessions one after another
+    n = z["server_n"]
+    feeds = batch_series("uk_elec", len(SERVER_PLAN), n)
+    quota = 2 * n
+    serial, wall_serial, _ = _serve(device, tmp / "serial.cameo", uk, feeds,
+                                    n, quota, concurrent=False)
+    want = {sid: _series_facts(serial.store, sid)
+            for sid in serial.store.series_ids()}
+    serial.close()
+    was = obs.enabled()
+    obs.reset()
+    obs.enable()
+    try:
+        path = tmp / "server.cameo"
+        srv, wall, pushes = _serve(device, path, uk, feeds, n, quota,
+                                   concurrent=True)
+        sids = [tenant_sid(t, s) for t, s in SERVER_PLAN]
+        require(sorted(srv.store.series_ids()) == sorted(want) ==
+                sorted(sids), "facade: the servers hold other series")
+        for sid in sids:
+            require(_series_facts(srv.store, sid) == want[sid],
+                    f"facade: server series {sid} differs from the "
+                    "sessions run one after another")
+        # the quota: refused before the journal
+        extra = srv.session("extra", tenant="acme")
+        wal = Path(srv.store._wal.path)
+        size = wal.stat().st_size
+        try:
+            extra.push(feeds[0][:1])
+            require(False, "facade: an over-quota push was accepted")
+        except QuotaExceeded:
+            pass
+        require(wal.stat().st_size == size and extra.n_seen == 0,
+                "facade: the over-quota push reached the journal")
+        st = srv.stats()
+        text = srv.metrics_text()
+        require(st["tenants"]["acme"]["points"] == quota
+                and st["tenants"][""]["points"] == 2 * n,
+                f"facade: tenant usage {st['tenants']}")
+        require(st["compaction"]["compacted"] == len(SERVER_PLAN)
+                and st["compaction"]["last_error"] is None,
+                f"facade: compaction {st['compaction']}")
+        for line in (f"cameo_server_points_total {len(SERVER_PLAN) * n}",
+                     f"cameo_server_pushes_total {pushes}",
+                     f'cameo_server_tenant_points_total{{tenant="acme"}} '
+                     f'{quota}'):
+            require(line in text, f"facade: /metrics lacks {line!r}")
+        answers = _server_answers(srv, a, b)
+        srv.close()
+    finally:
+        snap = obs.snapshot()
+        obs.OBS.enabled = was
+    from repro_torch.server import IngestServer, ServerConfig
+    again = IngestServer(str(path), uk,
+                         ServerConfig(seal_block_len=512, auto_compact=True),
+                         resume=True, device=device)
+    require(_server_answers(again, a, b) == answers,
+            "facade: the server answers otherwise after a resume=True "
+            "reopen")
+    again.close()
+    step("server 4 threads", len(SERVER_PLAN) * n, wall, path,
+         serial_wall_s=wall_serial, series_equal_serial=len(sids),
+         pushes=pushes, quota_refused_before_journal=True,
+         compacted=st["compaction"]["compacted"],
+         counters={k: v for k, v in snap["counters"].items()
+                   if k.startswith("server.")}, resumed_answers_equal=True)
+    # the deprecated service shim against write_batch
+    xs = batch_series("uk_elec", z["service_B"], z["uk_n"])
+    items = {f"v{i}": xs[i] for i in range(xs.shape[0])}
+    path = tmp / "service.cameo"
+
+    def service():
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", DeprecationWarning)
+            with TimeSeriesService(str(path), uk, TsServiceConfig(),
+                                   device=device) as svc:
+                for sid, x in items.items():
+                    svc.submit(sid, x)
+                svc.flush()
+
+    _, wall, _ = _run_timed(service, device)
+    ref = tmp / "service_ref.cameo"
+    with api.open(str(ref), uk, mode="w", device=device) as ds:
+        ds.write_batch(items)
+    require(path.read_bytes() == ref.read_bytes(),
+            "facade: the service's submits store other bytes than "
+            "write_batch")
+    step(f"service {xs.shape[0]} submits", xs.size, wall, path,
+         bytes_equal_batch=True)
+    counts = read_counts()
+    if device.type == "cuda":
+        for kname in WRAPPERS:
+            require(counts[kname] > 0,
+                    f"facade: kernel {kname} was never launched")
+    return dict(steps=steps, launches=counts)
+
+
+def _server_answers(srv, a: int, b: int) -> dict:
+    """Each session's series' mean and ACF over ``[a, b)`` with their
+    bounds, as bytes."""
+    return {(t, s): [np.asarray(v).tobytes() for kind in ("mean", "acf")
+                     for v in getattr(srv.series(s, tenant=t), kind)(a, b)]
+            for t, s in SERVER_PLAN}
+
+
+def run_facade(device, sizes=None, log=print) -> dict:
+    """The facade phase in a temporary directory under ``build/``."""
+    import tempfile
+    (ROOT / "build").mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        out = phase_facade(device, Path(tmp), sizes, log=log)
+    out["seconds"] = time.perf_counter() - t0
+    return out
 
 
 def _scan_state(device, name: str, rounds: int, length=None):
@@ -1668,6 +2020,13 @@ def main() -> int:
             "cr_cpu", "windows_same_kept_as_cpu", "deviation", "store_bytes",
             "wall_s", "points_per_s", "depths", "max_memory_allocated")}))
     print("stream counters " + json.dumps(report["streams"]["counters"]))
+    facade = run_facade(device)
+    seconds["facade"] = facade["seconds"]
+    for kname, c in facade["launches"].items():
+        report["launches"][kname] += c
+    print("facade " + json.dumps(dict(steps=facade["steps"],
+                                      launches=facade["launches"],
+                                      seconds=facade["seconds"])))
     t0 = time.perf_counter()
     print("lockstep " + json.dumps(scan_lockstep(device)))
     seconds["lockstep"] = time.perf_counter() - t0

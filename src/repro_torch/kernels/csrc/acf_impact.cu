@@ -44,17 +44,17 @@
 //   table values and two y values from shared memory, with no bounds test.
 //   Consecutive candidates share a block, so at kappa > 1 those with one yi
 //   read the same y values.
-// - Reduction.  With one lane a candidate (kSolo) the thread adds its lags'
-//   measure terms in lag order as it forms them, as the first form did.
-//   Otherwise each lane stores its lags' terms in shared memory (rows of
-//   odd stride, so the reducers' loads do not collide) and, after one more
-//   barrier, thread c of the block reduces candidate c's terms in lag order
-//   from 0 (a max for cheb).
+// - Reduction.  With one lane a candidate (kSolo) the thread reduces its
+//   lags' measure terms as it forms them (rn::reduce_terms: cheb their max,
+//   mae and rmse in XLA's row-reduce order).  Otherwise each lane stores
+//   its lags' terms in shared memory (rows of odd stride, so the reducers'
+//   loads do not collide) and, after one more barrier, thread c of the
+//   block reduces candidate c's terms the same way (win::reduce_lags).
 // - Lanes.  A batch of B series (y [B, nyb], dval [B, P], table [B, 5, L],
 //   p0 [B, L], ny [B] -> out [B, P]) is one launch: grid row blockIdx.y is
 //   a series, and the lanes a candidate are chosen for all B P candidates.
-//   No output depends on that choice (every form reduces in lag order from
-//   0), so each series gets the bits of its launch alone.
+//   No output depends on that choice (every form reduces in one order), so
+//   each series gets the bits of its launch alone.
 // yi = p / kappa is a multiply and a shift by a constant formed on the
 // host.  Every product and sum is rounded on its own (rn.cuh, no fused
 // multiply-add) and every sum runs in the plain version's order, so the
@@ -114,14 +114,14 @@ acf_impact_kernel(const T* __restrict__ y, const T* __restrict__ dval,
   const T d = live ? dval[p] : static_cast<T>(0);
   // -- barrier
   __syncthreads();
-  T acc = 0;   // kSolo: this thread's candidate, its lags' terms in order
+  T acc = 0;   // kSolo: this thread's candidate's deviation
   if (live) {
     // -- lag terms
     const T* yc = ys + (y_index(p, kmul, kshift) - y0);  // yc[j] = y[yi + j]
     const int yi = y0 + static_cast<int>(yc - ys);
     const T e = rn::mul(d, rn::add(static_cast<T>(2) * yc[0], d));
-    T* row = rows + sl.cand * S;
-    for (int l = sl.r + 1; l <= L; l += G) {
+    // the measure's term of lag l
+    const auto term = [=](int l) {
       const T* tl = tab + 6 * (l - 1);
       const T head = yi <= ny - 1 - l ? 1 : 0;
       const T tail = yi >= l ? 1 : 0;
@@ -133,11 +133,14 @@ acf_impact_kernel(const T* __restrict__ y, const T* __restrict__ dval,
       const T sxx = rn::add(tl[4], rn::mul(d, inner));
       const T rho = rn::acf_rho(sx, sxl, sx2, sxl2, sxx,
                                 static_cast<T>(ny - l));
-      const T diff = rn::sub(rho, tl[5]);
-      if constexpr (kSolo)
-        acc = rn::measure_step(measure, acc, diff);
-      else
-        row[l - 1] = win::measure_term(measure, diff);
+      return rn::measure_term(measure, rn::sub(rho, tl[5]));
+    };
+    if constexpr (kSolo) {
+      acc = rn::reduce_terms<T, false>(measure, L,
+                                       [=](int c) { return term(c + 1); });
+    } else {
+      T* row = rows + sl.cand * S;
+      for (int l = sl.r + 1; l <= L; l += G) row[l - 1] = term(l);
     }
   }
   // -- reduce

@@ -49,8 +49,8 @@
 //   the real ReHeap meets them only near the series' ends (PERF.md counts
 //   them over the main-path runs).
 // - Reduction.  Each lane stores its lag's measure term; after one more
-//   barrier the candidate's first lane reduces them in lag order, in
-//   rn::measure_step's order (win::reduce_lags).
+//   barrier the candidate's first lane reduces them: cheb their max, mae
+//   and rmse by rn::row_sum, XLA's row-reduce order (win::reduce_lags).
 // Every product and sum is rounded on its own (rn.cuh), so the output
 // equals the plain version bit for bit.  Templated on float and double:
 // the sequential mode ranks in the config's float64.
@@ -109,7 +109,7 @@ acf_window_impact_kernel(const T* __restrict__ ctx_g,
     const T rho = rn::acf_rho(
         rn::add(tab[0], a[0]), rn::add(tab[1], a[1]), rn::add(tab[2], a[2]),
         rn::add(tab[3], a[3]), rn::add(tab[4], a[4]), static_cast<T>(ny - l));
-    const T t = win::measure_term(measure, rn::sub(rho, pz));
+    const T t = rn::measure_term(measure, rn::sub(rho, pz));
     row[l - 1] = t;
   };
   if (live) {

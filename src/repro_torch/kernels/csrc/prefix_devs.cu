@@ -53,10 +53,10 @@
 //   past NT (L > kMaxThreads only) sit in a global scratch buffer,
 //   committed and trial side by side, and a commit swaps the two halves;
 //   shared memory stays for z, so no lag count outgrows it.  After one
-//   barrier every thread
-//   reduces the terms (cheb as a max, exact; NaN wins, as torch.amax; mae
-//   and rmse as one in-order chain, since bit-equality forbids a tree), so
-//   all hold the deviation and the decision.  A step costs two barriers,
+//   barrier every thread reduces the terms (cheb as a max, exact; NaN wins,
+//   as torch.amax; mae and rmse by rn::row_sum, XLA's row-reduce order,
+//   the plain version's), so all hold the deviation and the decision.  A
+//   step costs two barriers,
 //   __syncwarp in the one-warp block of L <= 32 (aus_elec's L = 7).
 // z (nyb + 2L + Wy values) sits in dynamic shared memory while it fits the
 // block's 227 KB (the launcher raises the 48 KB default), else in a global
@@ -185,7 +185,7 @@ prefix_devs_kernel(const T* __restrict__ y, const T* __restrict__ dyws,
   };
 
   // the trial moments t of this thread's lag from its window sums a, and
-  // the deviation, which every thread reduces over the lags' terms in order
+  // the deviation, which every thread reduces over the lags' terms
   auto deviation = [&](const T* a, T* t) -> T {
     for (int q = 0; q < 5; ++q) t[q] = rn::add(ag[q], a[q]);
     const T df = rn::sub(rn::acf_rho(t[0], t[1], t[2], t[3], t[4],
@@ -194,10 +194,12 @@ prefix_devs_kernel(const T* __restrict__ y, const T* __restrict__ dyws,
     const T v = measure == 1 ? rn::mul(df, df) : fabs(df);
     if (mine) vals[tid] = v;
     block_sync<kWarp>();
-    T acc = 0;
-#pragma unroll 8
-    for (int c = 0; c < L; ++c)
-      acc = measure == 2 ? max_nan(acc, vals[c]) : rn::add(acc, vals[c]);
+    const auto val = [=](int c) { return vals[c]; };
+    const T acc =
+        measure == 2
+            ? rn::chain<T, true>([](T m, T a) { return max_nan(m, a); }, val,
+                                 0, L)
+            : rn::row_sum<T, true>(L, val);
     return rn::measure_final(measure, acc, L);
   };
 

@@ -58,14 +58,93 @@ __device__ __forceinline__ void window_sums(const T* c, const T* d,
   }
 }
 
-// Deviation measures over lags taken in order (ref.measure_rows):
-// 0 mae, 1 rmse, 2 cheb.  acc starts at 0 and takes one lag at a time.
+// Terms term(lo), ..., term(hi - 1) taken by step from 0, first to last.
+// With kAhead the next kU terms are formed (loaded) while the current kU
+// are stepped, so a row in shared memory is read kU loads at a time.
+constexpr int kU = 8;
+
+template <typename T, bool kAhead, typename Step, typename Term>
+__device__ __forceinline__ T chain(Step step, Term term, int lo, int hi) {
+  T acc = 0;
+  if constexpr (!kAhead) {
+    for (int c = lo; c < hi; ++c) acc = step(acc, term(c));
+  } else {
+    T v[kU];
+#pragma unroll
+    for (int k = 0; k < kU; ++k)
+      v[k] = lo + k < hi ? term(lo + k) : static_cast<T>(0);
+    for (int q0 = lo; q0 < hi; q0 += kU) {
+      T vn[kU];
+#pragma unroll
+      for (int k = 0; k < kU; ++k)
+        vn[k] = q0 + kU + k < hi ? term(q0 + kU + k) : static_cast<T>(0);
+#pragma unroll
+      for (int k = 0; k < kU; ++k) {
+        if (q0 + k < hi) acc = step(acc, v[k]);
+        v[k] = vn[k];
+      }
+    }
+  }
+  return acc;
+}
+
+// Size of block b of one level of XLA's row-reduce over n values
+// (ref.xla_row_blocks): n itself up to 32; past that the row padded with
+// zeros to a multiple of 32, the smaller half of the padding in front, so
+// the first and last blocks share the rest.
+__device__ __forceinline__ int row_block(int n, int b) {
+  if (n <= 32) return n;
+  const int pad = (32 - n % 32) % 32, lo = pad / 2, nw = (n + pad) / 32;
+  return b == 0 ? 32 - lo : b == nw - 1 ? 32 - (pad - lo) : 32;
+}
+
+// A sum over L terms in XLA's CPU row-reduce order (ref.row_sum_xla, the
+// order of the reference's jnp.mean over the lags), walking the block
+// bounds: up to 32 terms one chain from +0 (the chain the kernels took
+// before); past that each block chained from +0, the block sums chained
+// within blocks of theirs, and those sums chained.  L = 48 is two blocks
+// of 24 and one add; L = 365 is 23 + 32 x 10 + 22, then 12 block sums.
+// Two levels of blocks take L up to 32,768; every kernel holds a row's L
+// values in shared memory, which bounds L far below that.
+template <typename T, bool kAhead, typename Term>
+__device__ __forceinline__ T row_sum_blocks(int L, Term term) {
+  const auto plus = [](T a, T t) { return add(a, t); };
+  const int n1 = (L + 31) / 32;   // level-0 blocks
+  T total = 0;
+  for (int b1 = 0, b0 = 0, i = 0; b0 < n1; ++b1) {
+    T s1 = 0;                     // a block of level-0 block sums
+    for (int end = b0 + row_block(n1, b1); b0 < end; ++b0) {
+      const int m = row_block(L, b0);
+      s1 = add(s1, chain<T, kAhead>(plus, term, i, i + m));
+      i += m;
+    }
+    total = add(total, s1);
+  }
+  return total;
+}
+
+template <typename T, bool kAhead, typename Term>
+__device__ __forceinline__ T row_sum(int L, Term term) {
+  if (L <= 32)
+    return chain<T, kAhead>([](T a, T t) { return add(a, t); }, term, 0, L);
+  return row_sum_blocks<T, kAhead>(L, term);
+}
+
+// Deviation measures over the lags (ref.measure_rows): 0 mae, 1 rmse,
+// 2 cheb.  A lag's term is |diff| (mae, cheb) or diff^2 (rmse).
 template <typename T>
-__device__ __forceinline__ T measure_step(int measure, T acc, T diff) {
-  if (measure == 1) return add(acc, mul(diff, diff));
-  const T a = fabs(diff);
-  if (measure == 0) return add(acc, a);
-  return acc > a ? acc : a;
+__device__ __forceinline__ T measure_term(int measure, T diff) {
+  return measure == 1 ? mul(diff, diff) : fabs(diff);
+}
+
+// The measure's reduction of the L terms term(0), ..., term(L - 1): cheb
+// their max in lag order, mae and rmse their row_sum.
+template <typename T, bool kAhead, typename Term>
+__device__ __forceinline__ T reduce_terms(int measure, int L, Term term) {
+  if (measure == 2)
+    return chain<T, kAhead>([](T a, T t) { return a > t ? a : t; }, term,
+                            0, L);
+  return row_sum<T, kAhead>(L, term);
 }
 
 template <typename T>

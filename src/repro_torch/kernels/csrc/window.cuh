@@ -1,7 +1,7 @@
 // What the two Eq. 9 window kernels (acf_window_impact.cu, window_rows.cu)
 // share: candidate packing, the staging pass, the window sums and the
-// in-order lag reduction; acf_impact.cu (Eq. 8) packs its candidates and
-// reduces their lags the same way.
+// lag reduction (rn::reduce_terms); acf_impact.cu (Eq. 8) packs its
+// candidates and reduces their lags the same way.
 //
 // A candidate's lags run one to a thread, G consecutive threads per
 // candidate (lane r takes lag r + 1, and r + 1 + G, ... when G < L):
@@ -46,14 +46,6 @@ __device__ __forceinline__ Slot slot(int L, int G, int cpu, int M) {
   return Slot{q, static_cast<int>(threadIdx.x) - q * G, true};
 }
 
-// rn::measure_step(measure, acc, diff) split in two: each lane forms its
-// lag's term, the reducing lane takes the terms in lag order (a max for
-// cheb, a sum for mae and rmse).
-template <typename T>
-__device__ __forceinline__ T measure_term(int measure, T diff) {
-  return measure == 1 ? rn::mul(diff, diff) : fabs(diff);
-}
-
 // Eq. 9 window sums of one lag l are the five moment deltas of
 // rn::window_sums: sum d h, sum d tl, sum e h, sum e tl and
 // sum d ((c[j + l] h + c[j - l] tl) + d[j + l] h), with the head and tail
@@ -61,7 +53,7 @@ __device__ __forceinline__ T measure_term(int measure, T diff) {
 // the window's first value.  Every chain runs first to last from its first
 // term, as rn::window_sums does; terms are formed kU at a time, ahead of
 // the chained adds.
-constexpr int kU = 8;
+using rn::kU;
 
 template <typename T>
 __device__ __forceinline__ T bilinear(const T* c, const T* d, int j, int l) {
@@ -154,40 +146,18 @@ __device__ __forceinline__ void stage(int r, int G, int C, int L, int W,
   for (int j = W + r; j < W + L; j += G) d[j] = static_cast<T>(0);
 }
 
-// A candidate's lag terms reduced in lag order from 0, as
-// rn::measure_step does (step: max for cheb, add for mae and rmse): lag
-// l's term is in row[l - 1], after the caller's barrier.  The reducing
-// thread (me) loads kU terms at a time ahead of the chained steps and
-// holds the result; every other thread returns 0.
-template <typename T, typename Step>
-__device__ __forceinline__ T reduce_with(Step step, int L, bool me,
-                                         const T* row) {
-  T acc = 0;
-  if (me) {
-    T v[kU];
-#pragma unroll
-    for (int k = 0; k < kU; ++k) v[k] = k < L ? row[k] : static_cast<T>(0);
-    for (int q0 = 0; q0 < L; q0 += kU) {
-      T vn[kU];
-#pragma unroll
-      for (int k = 0; k < kU; ++k)
-        vn[k] = q0 + kU + k < L ? row[q0 + kU + k] : static_cast<T>(0);
-#pragma unroll
-      for (int k = 0; k < kU; ++k) {
-        if (q0 + k < L) acc = step(acc, v[k]);
-        v[k] = vn[k];
-      }
-    }
-  }
-  return acc;
-}
-
+// A candidate's lag terms reduced as rn::reduce_terms does (cheb their max
+// in lag order, mae and rmse in XLA's row-reduce order): lag l's term is
+// in row[l - 1], after the caller's barrier.  The reducing thread (me)
+// holds the result; every other thread returns 0.  Its loads are not
+// issued ahead: with the blocked walk in the kernel, the smaller code is
+// the faster one (PERF.md §6).
 template <typename T>
 __device__ __forceinline__ T reduce_lags(int measure, int L, bool me,
                                          const T* row) {
-  if (measure == 2)
-    return reduce_with([](T a, T t) { return a > t ? a : t; }, L, me, row);
-  return reduce_with([](T a, T t) { return rn::add(a, t); }, L, me, row);
+  if (!me) return 0;
+  return rn::reduce_terms<T, false>(measure, L,
+                                    [=](int c) { return row[c]; });
 }
 
 // The barrier before a candidate's first lane reduces its own terms.

@@ -34,8 +34,8 @@
 // exact; the lane forms them beside its lag's bilinear chain (from 0.0f).
 // Other candidates walk the window with the head/tail cuts ch and ct per
 // lag, unchanged.  Each lane stores its lag's measure term; the
-// candidate's first lane reduces the terms in lag order after one more
-// barrier.  Tiny = 1e-30 in Eq. 2 (fused_round.py:236).  Products are
+// candidate's first lane reduces the terms (win::reduce_lags, XLA's
+// row-reduce order) after one more barrier.  Tiny = 1e-30 in Eq. 2 (fused_round.py:236).  Products are
 // rounded on their own (rn.cuh, no fused multiply-add) and sums run first
 // to last, as in the plain version, so the output equals it bit for bit.
 // Lanes: a batch of B series (dyws [B, K, Wy], ystarts [B, K], y [B, nyb],
@@ -142,7 +142,7 @@ window_rows_kernel(const float* __restrict__ dyws,
           rn::add(tab[0], dsx), rn::add(tab[1], rn::sub(cd, cd_t)),
           rn::add(tab[2], dsx2), rn::add(tab[3], rn::sub(ce, ce_t)),
           rn::add(tab[4], dsxx), static_cast<float>(ny - l));
-      const float t = win::measure_term(measure, rn::sub(rho, pz));
+      const float t = rn::measure_term(measure, rn::sub(rho, pz));
       row[l - 1] = t;
     }
   }

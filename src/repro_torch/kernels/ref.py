@@ -188,11 +188,12 @@ def row_sum_xla(xw: torch.Tensor) -> torch.Tensor:
 def sum_in_order(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """Sum over ``dim`` one term at a time, first to last.
 
-    The float32 ranking sums in this fixed order on every device, and the
-    CUDA kernels repeat it (without fused multiply-adds), so the card's
-    ranking keys equal the CPU's bit for bit and a run's trajectory does
-    not depend on where it ran.  ``torch.sum``'s order is not specified
-    and differs between CPU builds and the card.
+    The Eq. 9 window sums (over window positions, not lags) take this
+    fixed order on every device, and the CUDA kernels repeat it (without
+    fused multiply-adds), so the card's ranking keys equal the CPU's bit
+    for bit and a run's trajectory does not depend on where it ran.
+    ``torch.sum``'s order is not specified and differs between CPU builds
+    and the card.  Sums over lags take :func:`row_sum_xla`'s order.
     """
     x = torch.movedim(x, dim, 0)
     acc = x[0]
@@ -212,14 +213,19 @@ def div_exact(x: torch.Tensor, k: int) -> torch.Tensor:
 def measure_rows(rows: torch.Tensor, p0: torch.Tensor,
                  measure: str) -> torch.Tensor:
     """Kernel-supported deviation measures over ``[..., K, L]`` ACF rows
-    against ``p0 [..., L]`` (lag sums in order, see
-    :func:`sum_in_order`)."""
+    against ``p0 [..., L]``.
+
+    mae's and rmse's lag terms are summed in XLA's row-reduce order
+    (:func:`row_sum_xla`), the order of the reference's ``jnp.mean`` over
+    the lags, and divided exactly; the kernels walk the same blocks
+    (``rn::row_sum``).  Up to 32 lags that order is one chain from the
+    first lag to the last."""
     diff = rows - p0.unsqueeze(-2)
     L = diff.shape[-1]
     if measure == "mae":
-        return div_exact(sum_in_order(torch.abs(diff)), L)
+        return div_exact(row_sum_xla(torch.abs(diff)), L)
     if measure == "rmse":
-        return sqrt_rn(div_exact(sum_in_order(diff * diff), L))
+        return sqrt_rn(div_exact(row_sum_xla(diff * diff), L))
     if measure == "cheb":
         return torch.amax(torch.abs(diff), dim=-1)
     raise ValueError(measure)

@@ -40,6 +40,7 @@ from repro_torch.kernels import ref as t_ref
 from repro_torch.kernels.acf_impact import acf_impact_cuda, acf_impact_plain
 from repro_torch.kernels.lag_dot import extended_operand as lag_dot_ext
 from repro_torch.kernels.lag_dot import lag_dot_cuda, lag_dot_plain
+from test_torch_lag_order import row_sum_walk
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -264,8 +265,9 @@ def _acf_impact_schedule(y, dval, table, p0, *, L, measure, ny, kappa,
     at least two lags a lane, that fit), the placement of win::plan and
     win::slot, yi = p / kappa by the multiply and shift, every (candidate,
     lag) term formed once by its lane with the plain version's elementwise
-    arithmetic, then each candidate's terms taken in lag order from 0 (by
-    its own thread at one lane a candidate, else by thread c of its block).
+    arithmetic, then each candidate's terms taken in lag order (a max for
+    cheb, rn::row_sum's walk for mae and rmse; by its own thread at one lane
+    a candidate, else by thread c of its block).
     Returns the impacts and the lanes a candidate."""
     P = dval.shape[0]
     fill = 2048 * n_sm
@@ -300,10 +302,13 @@ def _acf_impact_schedule(y, dval, table, p0, *, L, measure, ny, kappa,
     rows = t_ref.acf_after_single_delta(table, y, idx, dval, ny=ny)
     diff = rows - p0[None, :]
     terms = diff * diff if measure == "rmse" else torch.abs(diff)
-    acc = torch.zeros(P, dtype=dval.dtype)
-    for lag in range(L):
-        t = terms[:, lag]
-        acc = torch.where(acc > t, acc, t) if measure == "cheb" else acc + t
+    if measure == "cheb":
+        acc = torch.zeros(P, dtype=dval.dtype)
+        for lag in range(L):
+            t = terms[:, lag]
+            acc = torch.where(acc > t, acc, t)
+    else:
+        acc = row_sum_walk(list(terms.T))
     if measure != "cheb":
         acc = t_ref.div_exact(acc, L)
         acc = t_ref.sqrt_rn(acc) if measure == "rmse" else acc

@@ -31,6 +31,7 @@ from repro.kernels import ref as j_ref
 from repro.kernels.acf_window_impact import acf_window_impact_pallas
 from repro_torch.kernels import fused_round as t_fused
 from repro_torch.kernels import ref as t_ref
+from test_torch_lag_order import row_sum_walk
 from repro_torch.kernels.acf_window_impact import (acf_window_impact_cuda,
                                                    acf_window_impact_plain)
 
@@ -78,16 +79,15 @@ def _edge_starts(rng, ny, W, L, P):
 
 
 def _reduce(terms, measure, L):
-    """The kernels' reduction: lag terms in order from 0 (rn::measure_step),
-    then rn::measure_final."""
-    acc = torch.zeros((), dtype=terms.dtype)
-    for t in terms:
-        if measure == "cheb":
-            acc = acc if bool(acc > t) else t
-        else:
-            acc = acc + t
+    """The kernels' reduction (rn::reduce_terms): cheb the lag terms' max in
+    lag order from 0, mae and rmse their rn::row_sum walk; then
+    rn::measure_final."""
     if measure == "cheb":
+        acc = torch.zeros((), dtype=terms.dtype)
+        for t in terms:
+            acc = acc if bool(acc > t) else t
         return acc
+    acc = row_sum_walk(list(terms))
     acc = acc / torch.full((), L, dtype=terms.dtype)
     return t_ref.sqrt_rn(acc) if measure == "rmse" else acc
 

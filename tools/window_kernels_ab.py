@@ -16,10 +16,11 @@ more tree, built the same way.  ``--kernels`` keeps a subset of STEMS.
 
 1. On each of ``chip_smoke.py``'s phase-3 cases of the kernels (both
    datasets; the window kernels' boundary-heavy cases too) every build is
-   held against the plain version under mae, rmse and cheb (prefix_devs:
-   its greedy walk under mae, and at K <= 4,096 under rmse and cheb too;
-   prefix_sum against its own tree's plain version, on the CPU, since the
-   trees may sum in other orders), at ``chip_smoke.TOL``, then timed under
+   held against its own tree's plain version (the tree's ``kernels/ref.py``
+   loaded with it, since trees may sum in other orders; lag_dot against
+   this tree's) under mae, rmse and cheb (prefix_devs: its greedy walk
+   under mae, and at K <= 4,096 under rmse and cheb too; prefix_sum's plain
+   version on the CPU), at ``chip_smoke.TOL``, then timed under
    mae with CUDA events in turns
    (parent, this tree, the variants, then the same in reverse; each turn
    ``chip_smoke.device_ms``).
@@ -36,7 +37,10 @@ more tree, built the same way.  ``--kernels`` keeps a subset of STEMS.
    version on the CPU bit for bit) and is timed over them in the same turns
    (the window kernels' launches with every candidate interior and the
    others apart), in chunks of 256 enqueued behind a busy card, so the sum
-   is the kernel's launch-weighted device time over the real runs.
+   is the kernel's launch-weighted device time over the real runs.  The
+   recorded outputs are this tree's, so trees whose ranking kernels reduce
+   the lags in another order (a tree from before the row-reduce order, at
+   L > 32) are compared with ``--no-real``.
 
 Prints one JSON line per case and writes all of them to
 ``chiprun_out/window_kernels_ab.json``.  Exits non-zero without a card or
@@ -77,9 +81,23 @@ WRAPPER_OF = {"acf_window_impact": ("acf_window_impact",
               "lag_dot": ("lag_dot", "lag_dot_cuda"),
               "prefix_devs": ("fused_round", "prefix_devs_cuda"),
               "prefix_sum": ("prefix_sum", "prefix_sum_cuda")}
-# kernels held to their own tree's plain version (name in the same module):
-# the trees may sum in other orders
-OWN_PLAIN = {"prefix_sum": "prefix_sum_plain"}
+# each kernel's plain version (name in the same module), held to its own
+# tree's: the trees may sum in other orders
+OWN_PLAIN = {"acf_window_impact": "acf_window_impact_plain",
+             "window_rows": "window_rows_plain",
+             "acf_impact": "acf_impact_plain",
+             "prefix_devs": "prefix_devs_plain",
+             "prefix_sum": "prefix_sum_plain"}
+
+
+def tree_ref(name: str, tree: Path):
+    """The tree's ``kernels/ref.py`` (the sums its plain versions take),
+    loaded under a name of its own."""
+    path = tree / "src" / "repro_torch" / "kernels" / "ref.py"
+    spec = importlib.util.spec_from_file_location(f"ab_{name}_ref", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def build_other(name: str, tree: Path, stems) -> dict:
@@ -110,8 +128,10 @@ def tree_wrappers(name: str, tree: Path, stems, plain: bool = False) -> dict:
     """kernel -> its wrapper as ``tree`` writes it (with ``plain``, its
     OWN_PLAIN version): the tree's module of ``kernels/`` loaded under a
     name of its own.  It imports this tree's ``_build``, whose libraries
-    ``use`` swaps, and this tree's other modules."""
+    ``use`` swaps, and this tree's other modules, but for ``ref``, the
+    tree's own."""
     mods, out = {}, {}
+    ref = tree_ref(name, tree)
     if plain:
         stems = [k for k in stems if k in OWN_PLAIN]
     for kname in stems:
@@ -122,6 +142,8 @@ def tree_wrappers(name: str, tree: Path, stems, plain: bool = False) -> dict:
                 f"ab_{name}_{mod}", path)
             mods[mod] = importlib.util.module_from_spec(spec)
             spec.loader.exec_module(mods[mod])
+            if hasattr(mods[mod], "_ref"):
+                mods[mod]._ref = ref
         out[kname] = getattr(mods[mod], OWN_PLAIN[kname] if plain else fn)
     return out
 
@@ -136,9 +158,8 @@ def cases(device, stems):
                 def run(w, measure, c=c):
                     return w(*c["args"], L=c["L"], measure=measure)
 
-                def plain(measure, c=c):
-                    return chip_smoke._fused.window_rows_plain(
-                        *c["args"], L=c["L"], measure=measure)
+                def plain(measure, fn, c=c):
+                    return fn(*c["args"], L=c["L"], measure=measure)
                 yield ("window_rows", name,
                        f"{c['label']}: K={c['K']} Wy={c['Wy']} L={c['L']} "
                        f"interior={c['interior']}", run, plain, every)
@@ -148,9 +169,9 @@ def cases(device, stems):
                     return w(*c["args"], ny=c["ny"], L=c["L"],
                              measure=measure)
 
-                def plain(measure, c=c):
-                    return chip_smoke._awi.acf_window_impact_plain(
-                        *c["args"], ny=c["ny"], L=c["L"], measure=measure)
+                def plain(measure, fn, c=c):
+                    return fn(*c["args"], ny=c["ny"], L=c["L"],
+                              measure=measure)
                 yield ("acf_window_impact", name,
                        f"{c['label']}: P={c['P']} W={c['W']} L={c['L']} "
                        f"interior={c['interior']}", run, plain, every)
@@ -159,9 +180,8 @@ def cases(device, stems):
                 def run(w, measure, c=c):
                     return w(*c["args"], measure=measure, **c["kw"])
 
-                def plain(measure, c=c):
-                    return chip_smoke._acf_impact.acf_impact_plain(
-                        *c["args"], measure=measure, **c["kw"])
+                def plain(measure, fn, c=c):
+                    return fn(*c["args"], measure=measure, **c["kw"])
                 yield "acf_impact", name, c["shape"], run, plain, every
         if "lag_dot" in stems:
             cfg, _, _, _, y64, *_ = chip_smoke.kernel_inputs(device, name)
@@ -181,10 +201,9 @@ def cases(device, stems):
                     return w(*c["args"], c["eps"], L=c["args"][4].shape[1],
                              measure=measure, greedy=True)
 
-                def plain(measure, c=c):
-                    return chip_smoke._fused.prefix_devs_plain(
-                        *c["args"], c["eps"], L=c["args"][4].shape[1],
-                        measure=measure, greedy=True)
+                def plain(measure, fn, c=c):
+                    return fn(*c["args"], c["eps"], L=c["args"][4].shape[1],
+                              measure=measure, greedy=True)
                 ok = int(c["args"][3].sum())
                 # the plain walk takes ~15 s a measure at aus_elec's K
                 yield ("prefix_devs", name,
@@ -341,7 +360,7 @@ def real_rows(device, libs, wrappers, plains, use, turns, stems) -> list:
                     f"{run['path']} against its recorded output")
             for c in calls:
                 got = wrappers[which][kname](*c["args"], **c["kw"])
-                if kname in OWN_PLAIN:
+                if kname == "prefix_sum":
                     # its own plain version's bits (a real launch's rows
                     # may be all zeros, which check_close refuses)
                     want = plains[which][kname](
