@@ -13,14 +13,14 @@ Phases, each of which fails the run (non-zero exit) on a wrong result:
 3. kernels — each hand-written kernel against its plain PyTorch version at
    the main paths' shapes of both datasets (uk_elec: n = 18,432, L = 48;
    aus_elec: nb = 245,760 onto nyb = 5,120, kappa = 48, L = 7), every
-   measure, with the tolerance stated (0 for every kernel but lag_dot,
-   whose float64 sums run in another order; lag_dot also gives the same
-   bits on a second call, and its cross and halo forms are held), timed
-   with CUDA events (kernel, plain version and, for lag_dot, a PyTorch
-   conv1d yardstick): the
+   measure, with the tolerance stated (0 for every kernel; lag_dot also
+   gives the same bits on a second call, and its cross and halo forms are
+   held, the halo form also on the partitioned mode's T partitions in one
+   launch), timed with CUDA events (kernel, plain version and, for
+   lag_dot, a PyTorch conv1d yardstick): the
    rounds mode's float32 kernels, the float64 forms of the sequential mode
-   (acf_impact at init, acf_window_impact at the ReHeap's P = 50 and, off
-   the driven paths, the partitioned mode's ranking chunk, P = 4,096) and
+   (acf_impact at init, acf_window_impact at the ReHeap's P = 50 and at
+   the partitioned mode's ranking chunk, T x min(4,096, n / T) rows) and
    the scan's prefix walk (prefix_devs, greedy and not, held exactly: a
    random walk over each dataset's k_max ranks, and the real lock-step
    round 3 of each dataset's scan, its arguments captured through the
@@ -45,9 +45,12 @@ Phases, each of which fails the run (non-zero exit) on a wrong result:
    bit-exact: rounds mode (``select="backoff"``) and ``select="scan"`` at
    full width and length on uk_elec (n = 17,520, L = 48) and aus_elec
    (n = 230,688, L = 7, kappa = 48), and ``mode="sequential"`` at the
-   quickstart's widths (hops 24, window 64) on uk_elec (4,096 points) and
-   aus_elec (4,800).  Backoff and sequential CRs are held within 5% of the
-   same call on the CPU; the scan's CR is reported beside the CPU path's
+   quickstart's widths (hops 24, window 64) on uk_elec (4,096 points, and
+   its whole year, 17,520, on the card alone) and aus_elec (4,800).
+   Backoff and sequential CRs are held within 5% of the
+   same call on the CPU (run in two worker processes that start with
+   phase 3 and go on beside the card's phases; the card-only run comes
+   first); the scan's CR is reported beside the CPU path's
    (which runs the linearized branch, the card the greedy one) and the
    card's backoff CR.  Then the batch: ``compress_batch`` of uk_elec
    (B = 16, seeds 0..15) and aus_elec (B = 4), each lane held against its
@@ -90,6 +93,19 @@ Phases, each of which fails the run (non-zero exit) on a wrong result:
    ``resume=True`` reopen answering the same; the service shim's 8
    submits byte-equal to ``write_batch``; every kernel launched; a
    ``facade step`` line a step and a ``facade {...}`` line;
+   Then the partitioned phase (``core/parallel.py``, ``run_partitioned``):
+   ``compress_partitioned`` of uk_elec in T = 8 partitions and aus_elec in
+   T = 6 at full length, each with its guarantee, every kernel of its path
+   launched (acf_window_impact once an impact chunk a round, whatever T),
+   held against the same run through the plain versions on the card (the
+   same iterations, CR within 5%), with its rounds' telemetry (accepted,
+   rejected, alpha), and its first rounds equal to the same rounds on the
+   CPU bit for bit;
+   ``compress_partitioned_local`` of uk_elec (T = 8); on NCCL at world
+   size 1, the shard form held to the global form of one partition and
+   ``compress_batch(mesh=)`` of 16 uk_elec stand-ins held to the unsharded
+   batch, bit for bit; ``partitioned {...}`` lines and the card's name and
+   power limit;
 5. the lock-step check — a scan round on uk_elec from one carry on the
    card: the greedy branch with the prefix_devs kernel and with its plain
    version must take the same candidates; then the seconds of each phase
@@ -106,7 +122,10 @@ inputs, where the wrappers take their plain versions.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
+import dataclasses
+import multiprocessing
 import json
 import statistics
 import subprocess
@@ -124,7 +143,9 @@ ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
 from repro_torch import obs  # noqa: E402
+from repro_torch import sharding as _shd  # noqa: E402
 from repro_torch.core import cameo  # noqa: E402
+from repro_torch.core import parallel as _par  # noqa: E402
 from repro_torch.core import streaming  # noqa: E402
 from repro_torch.core.acf import (acf, acf_from_aggregates,  # noqa: E402
                                   aggregate_series, extract_aggregates,
@@ -170,16 +191,18 @@ REPLACES = {"lag_dot": "src/repro/kernels/lag_dot.py:42",
 # Each output is held to its plain version elementwise: |got - want| <=
 # rtol |want| + floor max|want|.  The floor scales with the output, so an
 # output of the wrong scale (zeros, say) fails whatever the inputs' size.
-# Every kernel but lag_dot rounds each operation as its plain version does
-# and sums in its order, so it is held exactly: the rankings and the scan's
-# decisions depend on every bit.  lag_dot's float64 sums run in another
-# order than the plain version's (left to right, the JAX reference's, on
-# the CPU): 1e-10.  prefix_sum is held
-# exactly to its plain version on the CPU: both take XLA's cumsum order
-# (torch.cumsum's order is another, on the card and on the CPU).
-TOL = {"lag_dot": (1e-10, 1e-10), "acf_impact": (0.0, 0.0),
+# Every kernel rounds each operation as its plain version does and sums in
+# its order, so it is held exactly: the rankings, the Eq. 7 tables and the
+# scan's decisions depend on every bit.  lag_dot chains each lag's products
+# left to right as its plain version (the JAX reference's order) does on
+# the CPU; prefix_sum is held exactly to its plain version on the CPU: both
+# take XLA's cumsum order (torch.cumsum's order is another, on the card
+# and on the CPU).
+TOL = {"lag_dot": (0.0, 0.0), "acf_impact": (0.0, 0.0),
        "window_rows": (0.0, 0.0), "acf_window_impact": (0.0, 0.0),
-       "prefix_devs": (0.0, 0.0), "prefix_sum": (0.0, 0.0)}
+       "prefix_devs": (0.0, 0.0), "prefix_sum": (0.0, 0.0),
+       # lag_dot's library yardstick (conv1d) sums in its own order
+       "conv1d": (1e-10, 1e-10)}
 DATASETS = ("uk_elec", "aus_elec")
 MEASURES = ("mae", "rmse", "cheb")
 EPS = 1e-2
@@ -226,6 +249,26 @@ STREAM_CHUNKS = (1, 3000)
 # for uk_elec, 100 y cells of kappa = 48 for aus_elec): it pops one point
 # per iteration, each a few ms of eager host dispatch on the card
 SEQ_LENGTHS = {"uk_elec": 4096, "aus_elec": 4800}
+# the longer sequential run on the card alone: uk_elec's whole year
+SEQ_FULL_YEAR = 17520
+# the partitioned phase (``core/parallel.py``): (dataset, T partitions) of
+# the global form at full length (T divides n / kappa: uk_elec 2,190
+# points a partition, aus_elec 38,448 = 801 target cells); the local form
+# of the first; the shard form and ``compress_batch(mesh=)`` (uk_elec
+# B = 16) on NCCL at world size 1 (one card)
+PARTITIONED = (("uk_elec", 8), ("aus_elec", 6))
+PART_BATCH = 16
+# rounds of the CPU run each partitioned run is held against bit for bit:
+# a CPU round ranks every point by Eq. 9 in plain torch (~1.6 s at uk_elec's
+# 17,520 on the card machine), so a full-length CPU run does not fit the
+# time limit; the full-length run is held against the same run on the card
+# through the plain versions (``backend="reference"``) instead
+PART_CPU_ROUNDS = 6
+# the main paths' CPU runs (the bulk of the script's host time) run in
+# worker processes beside the card's phases: workers, and torch threads
+# each (the CPU path's bits do not depend on the thread count)
+CPU_REF_WORKERS = 2
+CPU_REF_THREADS = 3
 
 
 class SmokeFailure(RuntimeError):
@@ -385,12 +428,25 @@ def phase_kernels(device, name: str, length=None) -> list:
             f"{name} lag_dot ({'halo' if form[1] is not None else 'cross'})",
             "lag_dot", _lag_dot.lag_dot_cuda(y64, *form, L=L),
             _lag_dot.lag_dot_plain(y64, *form, L=L)))
+    # the halo form on the partitioned mode's T partitions, one launch,
+    # each partition as alone
+    T = dict(PARTITIONED).get(name, 1)
+    m = (nyb // T) if T > 1 else nyb
+    parts = y64[:T * m].reshape(T, m)
+    halos = torch.cat([parts[1:, :L], torch.zeros_like(parts[:1, :L])])
+    got_p = _lag_dot.lag_dot_cuda(parts, parts, halos, L=L)
+    err = max(err, check_close(f"{name} lag_dot (halo, {T} partitions)",
+                               "lag_dot", got_p, _lag_dot.lag_dot_plain(
+                                   parts, parts, halos, L=L)))
+    require_lanes(f"{name} lag_dot (halo, {T} partitions)", got_p,
+                  lambda b: _lag_dot.lag_dot_cuda(parts[b], parts[b],
+                                                  halos[b], L=L))
     b_ext = _lag_dot.extended_operand(y64, L=L)
 
     def conv():
         return F.conv1d(b_ext[1:].view(1, 1, -1), y64.view(1, 1, -1)).view(-1)
     if device.type == "cuda":
-        check_close(f"{name} conv1d yardstick", "lag_dot", conv(), want)
+        check_close(f"{name} conv1d yardstick", "conv1d", conv(), want)
     bnd, by = bound_ms((nyb + L) * 8, 2.0 * nyb * L, FP64_FLOPS)
     out.append(dict(
         name="lag_dot", shape=f"n={nyb} L={L} float64", max_abs_err=err,
@@ -521,19 +577,20 @@ def window_rows_entry(device, name: str, c: dict) -> dict:
 def window_impact_cases(device, name: str, length=None) -> list:
     """acf_window_impact's phase-3 cases, float64, W = 64 mapped onto y:
     the sequential ReHeap's P = 2(hops + 1) = 50 with starts across the
-    series; off the driven paths, the partitioned mode's ranking chunk (P
-    = impact_chunk, kappa = 1 only; no path of the port runs it yet); and a
-    boundary-heavy ReHeap, every start within L + W of either end."""
-    cfg, _, _, ny, y64, table, p0, _ = kernel_inputs(device, name, length)
+    series; the partitioned mode's ranking chunk (the T partitions'
+    candidates of one impact chunk, one launch: T x min(impact_chunk, n /
+    T) rows, ``PARTITIONED``'s T); and a boundary-heavy ReHeap, every start
+    within L + W of either end."""
+    cfg, n, _, ny, y64, table, p0, _ = kernel_inputs(device, name, length)
     L, kap = cfg.lags, cfg.kappa
     rng = np.random.default_rng(3)
     W = 64 if kap == 1 else 64 // kap + 2
     scale = float(torch.std(y64[:ny])) * 0.05
-    specs = [("ReHeap", 50, False)]
-    if kap == 1:
-        specs.append(("ranking chunk of the partitioned mode, unported: "
-                      "off path", min(cfg.impact_chunk, ny), False))
-    specs.append(("boundary-heavy ReHeap", 50, True))
+    T = dict(PARTITIONED).get(name, 1)
+    P_part = T * min(cfg.impact_chunk, n // T)
+    specs = [("ReHeap", 50, False),
+             (f"partitioned ranking chunk, T={T}", P_part, False),
+             ("boundary-heavy ReHeap", 50, True)]
     cases = []
     for label, P, edge in specs:
         st = _edge_starts(rng, ny, W, L, P) if edge else \
@@ -703,20 +760,23 @@ def prefix_case(device, what: str, args, eps, L: int,
     y, dyws, starts, ok = args[:4]
     K, Wy = dyws.shape
     nyb, ny = y.shape[0], int(args[6].reshape(-1)[0])
-    # the plain version walks K candidates with ~30 PyTorch ops each (16 s
-    # at aus_elec's K on the card), so it runs once per case; the greedy
-    # mae call is the one timed
+    # the plain version walks K candidates with ~30 PyTorch ops each (23 s
+    # at aus_elec's K on the card, less than half that on the CPU, whose
+    # plain arithmetic is the card's), so it runs once per case, on the
+    # card only for the greedy mae call, the one timed
     err, plain_ms = 0.0, None
     cases = [(False, "mae"), (True, "mae")]
     if K <= 4096:
         cases += [(True, "rmse"), (True, "cheb")]
+    cpu_args = [a.cpu() for a in args] + [eps.cpu()]
     for greedy, measure in cases:
         kw = dict(L=L, measure=measure, greedy=greedy)
         got = _fused.prefix_devs_cuda(*args, eps, **kw)
-        want, ms = timed_once(lambda: _fused.prefix_devs_plain(
-            *args, eps, **kw), device)
         if (greedy, measure) == (True, "mae"):
-            plain_ms = ms
+            want, plain_ms = timed_once(lambda: _fused.prefix_devs_plain(
+                *args, eps, **kw), device)
+        else:
+            want = _fused.prefix_devs_plain(*cpu_args, **kw).to(y.device)
         err = max(err, check_close(
             f"prefix_devs {what} (K={K}, Wy={Wy}, greedy={greedy}, "
             f"{measure})", "prefix_devs", got, want))
@@ -984,12 +1044,44 @@ def first_differing_pop(device, cfg, x: np.ndarray) -> dict:
     return out or dict(pop=None, pops=pop)
 
 
-def phase_main(device, name: str, path: str = "rounds", length=None,
-               cpu_check: bool = True):
+def _main_series(name: str, path: str, length):
     cfg, kernels, held = _path_cfg(name, path)
     x = make_dataset(name, seed=0, length=length)
-    n = (x.shape[0] // cfg.kappa) * cfg.kappa
-    x = x[:n]
+    return cfg, kernels, held, x[:(x.shape[0] // cfg.kappa) * cfg.kappa]
+
+
+def cpu_reference(name: str, path: str, length=None) -> dict:
+    """The CPU path's run of ``phase_main``'s (name, path, length): its
+    kept mask, kept count, iterations and wall seconds."""
+    cfg, _, _, x = _main_series(name, path, length)
+    t0 = time.perf_counter()
+    ref = cameo.compress(x, cfg, device="cpu")
+    return dict(kept=ref.kept.numpy(), n_kept=int(ref.n_kept),
+                iters=int(ref.iters), wall_s=time.perf_counter() - t0)
+
+
+def _cpu_worker_init(threads: int) -> None:
+    torch.set_num_threads(threads)
+
+
+def cpu_references(jobs) -> tuple:
+    """Start :func:`cpu_reference` of each (name, path, length) in ``jobs``
+    in ``CPU_REF_WORKERS`` spawned processes; ``(pool, {(name, path):
+    future})``.  The caller shuts the pool down."""
+    pool = concurrent.futures.ProcessPoolExecutor(
+        CPU_REF_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+        initializer=_cpu_worker_init, initargs=(CPU_REF_THREADS,))
+    return pool, {(name, path): pool.submit(cpu_reference, name, path, length)
+                  for name, path, length in jobs}
+
+
+def phase_main(device, name: str, path: str = "rounds", length=None,
+               cpu_check: bool = True, cpu_ref=None):
+    """``compress`` of ``name`` by ``path`` on ``device`` with its guarantee
+    and kernels held; on the card, against the CPU path's run
+    (``cpu_ref``, a future of :func:`cpu_reference`, or run here)."""
+    cfg, kernels, held, x = _main_series(name, path, length)
+    n = x.shape[0]
     if device.type == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1018,11 +1110,11 @@ def phase_main(device, name: str, path: str = "rounds", length=None,
                launches=counts, launches_per_iter=sum(counts.values())
                / max(int(res.iters), 1), max_memory_allocated=mem)
     if cpu_check and device.type == "cuda":
-        t0 = time.perf_counter()
-        ref = cameo.compress(x, cfg, device="cpu")
-        row.update(cr_cpu=n / float(ref.n_kept), iters_cpu=int(ref.iters),
-                   wall_s_cpu=time.perf_counter() - t0,
-                   same_kept=bool(torch.equal(res.kept.cpu(), ref.kept)))
+        ref = cpu_ref.result() if cpu_ref is not None \
+            else cpu_reference(name, path, length)
+        row.update(cr_cpu=n / float(ref["n_kept"]), iters_cpu=ref["iters"],
+                   wall_s_cpu=ref["wall_s"],
+                   same_kept=bool(np.array_equal(kept, ref["kept"])))
         if held:
             require(abs(cr - row["cr_cpu"]) <= 0.05 * row["cr_cpu"],
                     f"{what}: CR {cr} is not within 5% of the CPU path's "
@@ -1763,6 +1855,215 @@ def run_facade(device, sizes=None, log=print) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# the partitioned phase (core/parallel.py, compress_batch(mesh=))
+# ---------------------------------------------------------------------------
+
+PART_FIELDS = ("kept", "xr", "deviation", "n_kept", "iters", "stat_orig",
+               "stat_new")
+
+
+def _same_result(a, b) -> bool:
+    return all(torch.equal(getattr(a, f).cpu(), getattr(b, f).cpu())
+               for f in PART_FIELDS)
+
+
+def _part_row(device, what: str, name: str, x: np.ndarray, cfg, fn,
+              guarantee: bool = True) -> tuple:
+    """Run ``fn()`` timed with the counts set to 0 just before and read just
+    after; hold its guarantee (or, ``guarantee=False``, its re-measure and
+    kept values only); ``(result, row)``."""
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    res = fn()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    kept, xr = res.kept.cpu().numpy(), res.xr.cpu().numpy()
+    dev = float(res.deviation)
+    if guarantee:
+        re = check_guarantee(what, x, xr, kept, dev, cfg)
+    else:
+        re = remeasure(x, xr, cfg)
+        require(abs(re - dev) <= 1e-9,
+                f"{what}: re-measured deviation {re} != reported {dev}")
+        require(np.array_equal(xr[kept], x[kept]),
+                f"{what}: kept values are not bit-exact")
+    iters = int(res.iters)
+    return res, dict(
+        dataset=name, n=x.shape[0], iters=iters,
+        cr=x.shape[0] / float(kept.sum()), deviation=dev, remeasured=re,
+        wall_s=wall, s_per_iter=wall / max(iters, 1), launches=counts,
+        launches_per_iter=sum(counts.values()) / max(iters, 1),
+        max_memory_allocated=torch.cuda.max_memory_allocated()
+        if device.type == "cuda" else None)
+
+
+def _lockstep_trace(snap: dict) -> dict:
+    """The lockstep rounds' telemetry (``partitioned.*``) from a snapshot:
+    rounds accepted and rejected, points removed, the last accepted round
+    (from 0) and alpha's spread."""
+    c, h = snap["counters"], snap["histograms"]["partitioned.alpha"]
+    return dict(accepted=c.get("partitioned.rounds_accepted", 0),
+                rejected=c.get("partitioned.rounds_rejected", 0),
+                removed=c.get("partitioned.points_removed", 0),
+                last_accepted_round=snap["gauges"].get(
+                    "partitioned.last_accepted_round"),
+                alpha={k: h[k] for k in ("min", "p50", "max", "sum")})
+
+
+def phase_partitioned(device, name: str, T: int, length=None,
+                      cpu_rounds: int = PART_CPU_ROUNDS) -> dict:
+    """``compress_partitioned`` of ``name`` in T partitions on ``device``:
+    the guarantee of the run, every kernel of its path launched
+    (acf_window_impact a launch for each impact chunk, whatever T), the
+    full-length run held against the same run through the plain versions
+    on the card (the same iterations, CR within 5%; whether every field is
+    equal is printed), and the first ``cpu_rounds`` rounds on the card
+    equal to the same rounds on the CPU in every field, bit for bit.  The
+    row carries the rounds' telemetry (accepted, rejected, alpha)."""
+    cfg = cameo.CameoConfig(eps=EPS, **dataset_cameo_kwargs(name))
+    x = make_dataset(name, seed=0, length=length)
+    step = T * cfg.kappa
+    x = x[:(x.shape[0] // step) * step]
+    what = f"{name} partitioned T={T}"
+    was = obs.OBS.enabled
+    obs.reset()
+    obs.OBS.enabled = True
+    try:
+        res, row = _part_row(device, what, name, x, cfg,
+                             lambda: _par.compress_partitioned(
+                                 x, cfg, T, device=device))
+        row["trace"] = _lockstep_trace(obs.snapshot())
+    finally:
+        obs.OBS.enabled = was
+    chunks = -(-(x.shape[0] // T) // cfg.impact_chunk)
+    if device.type == "cuda":
+        for kname in ("lag_dot", "prefix_sum", "acf_window_impact"):
+            require(row["launches"][kname] > 0,
+                    f"{what}: kernel {kname} was never launched")
+        require(row["launches"]["acf_window_impact"]
+                == chunks * row["iters"],
+                f"{what}: {row['launches']['acf_window_impact']} "
+                f"acf_window_impact launches in {row['iters']} rounds, not "
+                f"{chunks} a round")
+    row.update(path="partitioned", T=T, lags=cfg.lags, kappa=cfg.kappa,
+               awi_launches_per_round=chunks,
+               stopped_at_max_rounds=row["iters"] == cfg.max_rounds)
+    if device.type == "cuda":
+        plain_cfg = dataclasses.replace(cfg, backend="reference")
+        plain, prow = _part_row(device, f"{what} plain", name, x, plain_cfg,
+                                lambda: _par.compress_partitioned(
+                                    x, plain_cfg, T, device=device))
+        require(sum(prow["launches"].values()) == 0,
+                f"{what} plain: a kernel was launched {prow['launches']}")
+        require(prow["iters"] == row["iters"],
+                f"{what}: {row['iters']} rounds, the plain versions' run "
+                f"{prow['iters']}")
+        require(abs(row["cr"] - prow["cr"]) <= 0.05 * prow["cr"],
+                f"{what}: CR {row['cr']} is not within 5% of the plain "
+                f"versions' {prow['cr']}")
+        row.update(plain_cr=prow["cr"], plain_iters=prow["iters"],
+                   plain_wall_s=prow["wall_s"],
+                   same_as_plain=_same_result(res, plain),
+                   same_kept_as_plain=bool(torch.equal(res.kept,
+                                                       plain.kept)))
+    if cpu_rounds and device.type == "cuda":
+        short = dataclasses.replace(cfg, max_rounds=cpu_rounds)
+        card = _par.compress_partitioned(x, short, T, device=device)
+        t0 = time.perf_counter()
+        cpu = _par.compress_partitioned(x, short, T, device="cpu")
+        row.update(cpu_rounds=int(cpu.iters),
+                   cpu_wall_s=time.perf_counter() - t0)
+        require(_same_result(card, cpu),
+                f"{what}: the first {cpu_rounds} rounds on the card differ "
+                f"from the CPU's")
+    return row
+
+
+def phase_partitioned_dist(device, tmp: Path, name: str = "uk_elec",
+                           B: int = PART_BATCH, length=None) -> dict:
+    """On one rank of NCCL (gloo on the CPU) at world size 1: the shard
+    form of ``name`` (one partition) held to the global form of one
+    partition, and ``compress_batch(mesh=)`` of B series held to the
+    unsharded batch, bit for bit."""
+    import torch.distributed as dist
+    cfg = cameo.CameoConfig(eps=EPS, **dataset_cameo_kwargs(name))
+    x = make_dataset(name, seed=0, length=length)
+    x = x[:(x.shape[0] // cfg.kappa) * cfg.kappa]
+    rows = {}
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                            init_method=f"file://{tmp / 'rdv'}",
+                            world_size=1, rank=0)
+    try:
+        mesh = _shd.mesh_1d(device.type)
+        res, rows["shard"] = _part_row(
+            device, f"{name} shard form", name, x, cfg,
+            lambda: _par.compress_partitioned_shardmap(x, cfg, mesh))
+        want = _par.compress_partitioned(x, cfg, 1, device=device)
+        require(_same_result(res, want),
+                f"{name} shard form: not the global form's bits")
+        xs = batch_series(name, B, length)
+        reset_counts()
+        t0 = time.perf_counter()
+        got = cameo.compress_batch(xs, cfg, mesh=mesh)
+        wall = time.perf_counter() - t0
+        rows["mesh_batch"] = dict(B=B, rounds=int(torch.max(got.iters)),
+                                  wall_s=wall, launches=read_counts())
+        require(_same_result(got, cameo.compress_batch(xs, cfg,
+                                                       device=device)),
+                f"{name} compress_batch(mesh=): not the unsharded bits")
+    finally:
+        dist.destroy_process_group()
+    return rows
+
+
+def run_partitioned(device, sizes=None, cpu_rounds: int = PART_CPU_ROUNDS,
+                    partitions=PARTITIONED, log=print) -> dict:
+    """The partitioned phase: the global runs of ``partitions`` (dataset,
+    T), the local form of the first, then the shard form and
+    ``compress_batch(mesh=)`` (in a temporary directory under ``build/``
+    for the rendezvous).  ``sizes`` maps a dataset to a shorter length
+    (the CPU rehearsal)."""
+    import tempfile
+    device = torch.device(device)
+    sizes = sizes or {}
+    t0 = time.perf_counter()
+    rows, launches = [], dict.fromkeys(WRAPPERS, 0)
+
+    def add(row):
+        rows.append(row)
+        for kname, c in row["launches"].items():
+            launches[kname] += c
+        log("partitioned " + json.dumps(row))
+
+    for name, T in partitions:
+        add(phase_partitioned(device, name, T, sizes.get(name), cpu_rounds))
+    name, T = partitions[0]
+    cfg = cameo.CameoConfig(eps=EPS, **dataset_cameo_kwargs(name))
+    x = make_dataset(name, seed=0, length=sizes.get(name))
+    _, row = _part_row(device, f"{name} local T={T}", name, x, cfg,
+                       lambda: _par.compress_partitioned_local(
+                           x, cfg, T, device=device), guarantee=False)
+    row.update(path="partitioned_local", T=T)
+    add(row)
+    (ROOT / "build").mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        dist_rows = phase_partitioned_dist(device, Path(tmp), name,
+                                           length=sizes.get(name))
+    for key, row in dist_rows.items():
+        row.update(path=key)
+        if key == "shard":
+            row["T"] = 1
+        add(row)
+    return dict(rows=rows, launches=launches,
+                seconds=time.perf_counter() - t0)
+
+
 def _scan_state(device, name: str, rounds: int, length=None):
     """A scan run on ``device`` stepped ``rounds`` rounds (one lane): the
     config, the round functions' arguments, p0, the carry and the next
@@ -1860,90 +2161,104 @@ def run_phases(device, *, uk_length=None, aus_length=None,
     both datasets' shapes, one series and lanes (``kernel_lanes``, default
     ``KERNEL_LANES``), then the main paths on uk_elec and aus_elec (rounds
     and scan at ``uk_length``/``aus_length``, default full; sequential at
-    ``seq_lengths``, default ``SEQ_LENGTHS``, and at full length for the
-    datasets in ``seq_full``, without the CPU run), then the batch phase
+    ``seq_lengths``, default ``SEQ_LENGTHS``, and at the (dataset, length)
+    pairs of ``seq_full`` without the CPU run), then the batch phase
     (``batches`` and ``compress_multivariate`` of ``mv_columns`` columns,
     at the same lengths), then the streaming phase (``streams`` and the
-    multivariate ``stream_mv``).  Returns the report."""
+    multivariate ``stream_mv``).  On the card the main paths' CPU runs
+    start first, in worker processes (``cpu_references``), and run
+    beside the kernel phases.  Returns the report."""
     device = torch.device(device)
     lengths = dict(zip(DATASETS, (uk_length, aus_length)))
     seq_lengths = seq_lengths or SEQ_LENGTHS
     kernel_lanes = kernel_lanes or KERNEL_LANES
-    seconds = {}
-    t0 = time.perf_counter()
-    kernels = []
-    for name in DATASETS:
-        kernels += phase_kernels(device, name, lengths[name])
-    seconds["kernels"] = time.perf_counter() - t0
-    for name in DATASETS:
-        kernels += phase_kernels_lanes(
-            device, name, kernel_lanes[name], lengths[name],
-            prefix_lanes=prefix_lanes if name == "uk_elec" else 0)
-    seconds["kernels_lanes"] = time.perf_counter() - t0 - seconds["kernels"]
-    for k in kernels:
-        log(f"kernel {k['name']} {k['dataset']} [{k['shape']}] max_abs_err="
-            f"{k['max_abs_err']:.3e} tol rtol {TOL[k['name']][0]} + "
-            f"{TOL[k['name']][1]} x max|plain| ms={k['ms']} "
-            f"plain_ms={k['plain_ms']} library_ms={k['library_ms']} "
-            f"bound_ms={k['bound_ms']:.3e} ({k['bound_by']})")
-    floor = launch_floor_ms(device)
-    log(f"launch_floor ms={floor} (an empty kernel, built and bound as the "
-        f"port's kernels are)")
-    runs = []
-    totals = dict.fromkeys(WRAPPERS, 0)
-    t0 = time.perf_counter()
-    for path in PATHS:
+    main_jobs = [(name, path, seq_lengths[name] if path == "sequential"
+                  else lengths[name]) for path in PATHS for name in DATASETS]
+    pool, refs = cpu_references(main_jobs) \
+        if cpu_check and device.type == "cuda" else (None, {})
+    try:
+        seconds = {}
+        t0 = time.perf_counter()
+        kernels = []
         for name in DATASETS:
-            length = seq_lengths[name] if path == "sequential" \
-                else lengths[name]
-            row = phase_main(device, name, path, length,
-                             cpu_check=cpu_check)
+            kernels += phase_kernels(device, name, lengths[name])
+        seconds["kernels"] = time.perf_counter() - t0
+        for name in DATASETS:
+            kernels += phase_kernels_lanes(
+                device, name, kernel_lanes[name], lengths[name],
+                prefix_lanes=prefix_lanes if name == "uk_elec" else 0)
+        seconds["kernels_lanes"] = time.perf_counter() - t0 - seconds["kernels"]
+        for k in kernels:
+            log(f"kernel {k['name']} {k['dataset']} [{k['shape']}] max_abs_err="
+                f"{k['max_abs_err']:.3e} tol rtol {TOL[k['name']][0]} + "
+                f"{TOL[k['name']][1]} x max|plain| ms={k['ms']} "
+                f"plain_ms={k['plain_ms']} library_ms={k['library_ms']} "
+                f"bound_ms={k['bound_ms']:.3e} ({k['bound_by']})")
+        floor = launch_floor_ms(device)
+        log(f"launch_floor ms={floor} (an empty kernel, built and bound as the "
+            f"port's kernels are)")
+        runs = []
+        totals = dict.fromkeys(WRAPPERS, 0)
+        t0 = time.perf_counter()
+        # the card-only runs first, while the CPU runs go on beside them
+        card_only = []
+        for name, n in seq_full:
+            row = phase_main(device, name, "sequential", n, cpu_check=False)
             for kname, c in row["launches"].items():
                 totals[kname] += c
-            runs.append(row)
+            card_only.append(row)
             log("main " + json.dumps(row))
-    for name in seq_full:
-        row = phase_main(device, name, "sequential", cpu_check=False)
-        for kname, c in row["launches"].items():
-            totals[kname] += c
-        runs.append(row)
-        log("main " + json.dumps(row))
-    by = {(r["dataset"], r["path"]): r for r in runs}
-    for name in DATASETS:
-        # the scan's CR beside the card's backoff CR
-        by[(name, "scan")]["cr_backoff"] = by[(name, "rounds")]["cr"]
-    seconds["main_paths"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    batch_rows = []
-    for name, B, held in batches:
-        row = phase_batch(device, name, B, held, lengths[name])
-        row["path"] = "batch"
-        batch_rows.append(row)
-        log("batch " + json.dumps(row))
-    if mv_columns:
-        row = phase_multivariate(device, "uk_elec", mv_columns,
-                                 lengths["uk_elec"])
-        row["path"] = "multivariate"
-        batch_rows.append(row)
-        log("multivariate " + json.dumps(row))
-    for row in batch_rows:
-        for kname, c in row["launches"].items():
-            totals[kname] += c
-    seconds["batch"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    reset_counts()
-    stream = run_streams(device, streams=streams, mv=stream_mv,
-                         cpu_check=cpu_check, log=log)
-    for row in stream["rows"]:
-        for r in (row.get("depths") or {}).values():
-            for kname, c in r["launches"].items():
+        for path in PATHS:
+            for name in DATASETS:
+                length = seq_lengths[name] if path == "sequential" \
+                    else lengths[name]
+                row = phase_main(device, name, path, length,
+                                 cpu_check=cpu_check,
+                                 cpu_ref=refs.get((name, path)))
+                for kname, c in row["launches"].items():
+                    totals[kname] += c
+                runs.append(row)
+                log("main " + json.dumps(row))
+        runs += card_only
+        by = {(r["dataset"], r["path"]): r for r in runs}
+        for name in DATASETS:
+            # the scan's CR beside the card's backoff CR
+            by[(name, "scan")]["cr_backoff"] = by[(name, "rounds")]["cr"]
+        seconds["main_paths"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        batch_rows = []
+        for name, B, held in batches:
+            row = phase_batch(device, name, B, held, lengths[name])
+            row["path"] = "batch"
+            batch_rows.append(row)
+            log("batch " + json.dumps(row))
+        if mv_columns:
+            row = phase_multivariate(device, "uk_elec", mv_columns,
+                                     lengths["uk_elec"])
+            row["path"] = "multivariate"
+            batch_rows.append(row)
+            log("multivariate " + json.dumps(row))
+        for row in batch_rows:
+            for kname, c in row["launches"].items():
                 totals[kname] += c
-        for kname, c in (row.get("launches") or {}).items():
-            totals[kname] += c
-    seconds["stream"] = time.perf_counter() - t0
-    return dict(kernels=kernels, runs=runs, batches=batch_rows,
-                streams=stream, launches=totals, launch_floor_ms=floor,
-                seconds=seconds)
+        seconds["batch"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        reset_counts()
+        stream = run_streams(device, streams=streams, mv=stream_mv,
+                             cpu_check=cpu_check, log=log)
+        for row in stream["rows"]:
+            for r in (row.get("depths") or {}).values():
+                for kname, c in r["launches"].items():
+                    totals[kname] += c
+            for kname, c in (row.get("launches") or {}).items():
+                totals[kname] += c
+        seconds["stream"] = time.perf_counter() - t0
+        return dict(kernels=kernels, runs=runs, batches=batch_rows,
+                    streams=stream, launches=totals, launch_floor_ms=floor,
+                    seconds=seconds)
+    finally:
+        if pool is not None:
+            pool.shutdown(wait=True, cancel_futures=True)
 
 
 def kernel_rows(report) -> list:
@@ -1994,12 +2309,12 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  ptxas {stem}: {line.strip()}")
 
-    # uk_elec's sequential run at its full 17,520 points too: ~4 ms of
-    # host dispatch a pop on the card, so its CPU twin (~10 ms a pop) is
-    # left to the 4,096-point run
+    # uk_elec's sequential run over its whole year too: ~4 ms of host
+    # dispatch a pop on the card, so its CPU twin is left to the
+    # 4,096-point run
     seconds = {"build": info["seconds"]}
     t0 = time.perf_counter()
-    report = run_phases(device, seq_full=("uk_elec",))
+    report = run_phases(device, seq_full=(("uk_elec", SEQ_FULL_YEAR),))
     seconds.update(report["seconds"])
     for r in report["runs"]:
         print("path " + json.dumps({k: r.get(k) for k in (
@@ -2027,6 +2342,11 @@ def main() -> int:
     print("facade " + json.dumps(dict(steps=facade["steps"],
                                       launches=facade["launches"],
                                       seconds=facade["seconds"])))
+    part = run_partitioned(device)
+    seconds["partitioned"] = part["seconds"]
+    for kname, c in part["launches"].items():
+        report["launches"][kname] += c
+    print(nvidia_smi())
     t0 = time.perf_counter()
     print("lockstep " + json.dumps(scan_lockstep(device)))
     seconds["lockstep"] = time.perf_counter() - t0

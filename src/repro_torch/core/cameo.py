@@ -69,8 +69,6 @@ from repro_torch.kernels.acf_impact import acf_impact_cuda
 from repro_torch.kernels.ref import take
 from repro_torch.obs import OBS
 
-_NOT_PORTED = "not ported yet (ROADMAP.md, {item})"
-
 
 @dataclasses.dataclass(frozen=True)
 class CameoConfig:
@@ -955,9 +953,9 @@ def compress(x, cfg: CameoConfig, *, device="cuda") -> CompressResult:
     return compress_rounds(x, cfg, device=device)
 
 
-def compress_batch(xs, cfg: CameoConfig, mesh=None, *,
+def compress_batch(xs, cfg: CameoConfig, mesh=None, axis: str = "data", *,
                    pad_to: Optional[int] = None,
-                   device="cuda") -> CompressResult:
+                   device=None) -> CompressResult:
     """Batched multi-series compression — the fleet-of-sensors workload.
 
     ``xs`` is ``[B, n]`` (B independent series of equal length); returns a
@@ -967,8 +965,16 @@ def compress_batch(xs, cfg: CameoConfig, mesh=None, *,
     (``_run_rounds``): a round launches each kernel once for each of its
     (at most two) lane groups, and finished lanes leave the working set.
     A tail remainder is trimmed so the length is divisible by ``kappa``;
-    ``pad_to`` forces at least that shape bucket.  ``mesh`` (sharding the
-    batch over devices) is not ported yet.
+    ``pad_to`` forces at least that shape bucket.
+
+    With ``mesh`` (a 1-D ``torch.distributed`` device mesh, see
+    ``repro_torch.sharding``) the batch is split over the ranks along
+    ``axis`` (B must divide evenly): each rank passes the whole batch,
+    compresses its ``B / T`` lanes on its device and every rank returns
+    the whole result, the lanes all-gathered in order (each lane the bits
+    of its solo run, so the result equals the unsharded batch's).
+    ``device`` defaults to the card, or with ``mesh`` to the rank's device
+    (its card under NCCL, the CPU under gloo).
 
     With telemetry on it records the JAX package's batch counters under
     their names: ``cameo.batch_rounds_total`` (the lanes' rounds, summed)
@@ -979,10 +985,6 @@ def compress_batch(xs, cfg: CameoConfig, mesh=None, *,
     or split into the two groups.  JAX counts the bucket slots of its
     chunked driver instead, so the two packages' values differ.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "compress_batch(mesh=...) is " + _NOT_PORTED.format(
-                item="A7, torch.distributed"))
     xs = torch.as_tensor(xs)
     if xs.dim() != 2:
         raise ValueError(f"compress_batch wants [B, n], got "
@@ -991,9 +993,27 @@ def compress_batch(xs, cfg: CameoConfig, mesh=None, *,
         raise ValueError("compress_batch batches the rounds mode; got "
                          f"mode={cfg.mode!r}")
     _check_supported(cfg)
-    dev = _device(device)
     if cfg.kappa > 1:
         xs = xs[:, :(xs.shape[1] // cfg.kappa) * cfg.kappa]
+    if mesh is not None:
+        from repro_torch import sharding as shd
+        if not hasattr(mesh, "get_group"):
+            raise TypeError("compress_batch: mesh must be a "
+                            "torch.distributed DeviceMesh, got "
+                            f"{type(mesh).__name__}")
+        T = shd.axis_size(mesh, axis)
+        B = xs.shape[0]
+        if B % T:
+            raise ValueError(f"batch {B} not divisible over {T} devices on "
+                             f"axis {axis!r}")
+        r, b = shd.axis_rank(mesh, axis), B // T
+        mine = compress_batch(
+            xs[r * b:(r + 1) * b], cfg, pad_to=pad_to,
+            device=shd.mesh_device(mesh) if device is None else device)
+        return CompressResult(*(
+            shd.gather_ranks(t, mesh, axis).reshape(B, *t.shape[1:])
+            for t in mine))
+    dev = _device("cuda" if device is None else device)
     return _compress_lanes(xs.to(dtype=cfg.tdtype(), device=dev), cfg,
                            pad_to, observe=True)
 

@@ -35,8 +35,8 @@ Semantics (the differential contract ``tests/test_streaming.py`` enforces):
 
 Durability is the layer above's concern: this class acks nothing — a
 ``push()`` return only means the points are buffered/compressed in memory.
-(The JAX package's serving façade journals each chunk before it reaches
-the compressor; the port's façade is ROADMAP A6.)
+(The serving façade, ``repro_torch.api``, journals each chunk before it
+reaches the compressor.)
 
 Window borders are always kept (``compress`` never removes endpoints), so
 windows concatenate without any interpolation segment crossing a border and
@@ -801,8 +801,8 @@ def compress_windowed(x, cfg: CameoConfig, window_len: int = 4096, *,
 
     .. deprecated::
         As in the JAX package, application code should stream through
-        :class:`StreamingCompressor` (the façade, ``repro.api``, is ROADMAP
-        A6); this function stays as the differential-test oracle.
+        :class:`StreamingCompressor` (or the façade, ``repro_torch.api``);
+        this function stays as the differential-test oracle.
     """
     warnings.warn(
         "compress_windowed is deprecated as an application entry point; "

@@ -42,12 +42,16 @@
 //   1 is exact: the masked sums equal the unmasked ones bit for bit.  The
 //   lane forms sum d and sum e (lag-free: one warp instruction serves
 //   every lag the warp holds) beside its lag's bilinear chain
-//   sum_j d[j] ((c[j + l] + c[j - l]) + d[j + l]), each first to last from
-//   its first term, as rn::window_sums starts them, eight terms at a time,
-//   the next eight loaded while these are added (win::interior_sums).
-// - Boundary windows (any other) keep rn::window_sums, the masked sums:
-//   the real ReHeap meets them only near the series' ends (PERF.md counts
-//   them over the main-path runs).
+//   sum_j d[j] ((c[j + l] + d[j + l]) + c[j - l]), each first to last from
+//   +0, eight terms at a time, the next eight loaded while these are added
+//   (win::interior_sums).
+// - Boundary windows (any other) take the five masked sums, chained from
+//   +0 over rn::window_term<true>: the real ReHeap meets them only near the
+//   series' ends (PERF.md counts them over the main-path runs).
+// - Order.  The plain version is the reference's one contraction
+//   einsum("paw,pawl->pal") with the basis (y_fwd + d_fwd) head + y_bwd
+//   tail; XLA sums a contraction over the window one product at a time
+//   from +0, and the kernel does the same, with that association.
 // - Reduction.  Each lane stores its lag's measure term; after one more
 //   barrier the candidate's first lane reduces them: cheb their max, mae
 //   and rmse by rn::row_sum, XLA's row-reduce order (win::reduce_lags).
@@ -103,7 +107,11 @@ acf_window_impact_kernel(const T* __restrict__ ctx_g,
   // The boundary sums and Eq. 2 stay lambdas: the same arithmetic written
   // inline in the loop compiled 11% slower on the card (PERF.md section 6).
   auto boundary = [&](int l, T a[5]) {
-    rn::window_sums(c, d, e, W, s, l, ny, a);
+    rn::chain_n<T, 5>(
+        [&](int j, T v[5]) {
+          rn::window_term<true>(c, d, e, W, s, j, l, ny, v);
+        },
+        0, W, a);
   };
   auto finish = [&](int l, const T a[5]) {
     const T rho = rn::acf_rho(

@@ -41,12 +41,15 @@
 //   mask is 1, and multiplying by 1 is exact).  The sums of d and of
 //   e = d (2 z + d) are the same for every lag: they run once in each
 //   warp's instruction stream.  Each thread forms its lag's Wy products
-//   d_j ((z[j + l] + z[j - l]) + d[j + l]) in registers and chains them
-//   in order, beside the sums of d and e.  Boundary candidates stage e in
-//   shared memory and take rn::window_sums (shared with
-//   acf_window_impact.cu) for each lag.  (Forming all L x Wy products
-//   across the block into shared memory, then one chain per lag from
-//   there, took longer on the card: PERF.md.)
+//   d_j ((z[j + l] + z[j - l]) + d[j + l]) in registers and sums them
+//   beside the sums of d and e.  Boundary candidates stage e in shared
+//   memory and take the five masked sums of rn::window_term<false> (the
+//   Pallas body's association) for each lag.  Every window sum runs in
+//   XLA's row-reduce order (rn::row_sums: up to 32 terms a chain from +0,
+//   past that blocks of 32), the order of the Pallas body's jnp.sum and of
+//   the plain version.  (Forming all L x Wy products across the block into
+//   shared memory, then one chain per lag from there, took longer on the
+//   card: PERF.md.)
 // - Decision.  Each thread keeps its first lag's committed moments in
 //   registers, forms the trial moments and the Eq. 2 entry, and posts its
 //   lag's term of the measure in shared memory.  The moments of the lags
@@ -269,49 +272,54 @@ prefix_devs_kernel(const T* __restrict__ y, const T* __restrict__ dyws,
       T* zc = z + s + L;
       T a[5];
       if (s >= L && s + Wy + L <= ny) {
-        // interior: this lag's products, chained over the window with the
-        // sums of d and e, first to last
-        auto term = [&](int j, T& dj, T& ej) -> T {
-          dj = d[j];
-          const T zj = zc[j], zf = zc[j + lw], zb = zc[j - lw];
-          const T df = j + lw < Wy ? d[j + lw] : static_cast<T>(0);
-          ej = rn::mul(dj, rn::add(static_cast<T>(2) * zj, dj));
-          return rn::mul(dj, rn::add(rn::add(zf, zb), df));
-        };
-        T sd, se;
-        T s4 = term(0, sd, se);
-#pragma unroll 4
-        for (int j = 1; j < Wy; ++j) {
-          T dj, ej;
-          const T pj = term(j, dj, ej);
-          s4 = rn::add(s4, pj);
-          sd = rn::add(sd, dj);
-          se = rn::add(se, ej);
-        }
-        a[0] = a[1] = sd;
-        a[2] = a[3] = se;
-        a[4] = s4;
+        // interior: this lag's products, summed over the window with the
+        // sums of d and e, in XLA's row-reduce order
+        T s3[3];
+        rn::row_sums<T, 3>(
+            Wy,
+            [&](int j, T v[3]) {
+              const T dj = d[j];
+              const T df = j + lw < Wy ? d[j + lw] : static_cast<T>(0);
+              v[0] = dj;
+              v[1] = rn::mul(dj, rn::add(static_cast<T>(2) * zc[j], dj));
+              v[2] = rn::mul(dj, rn::add(rn::add(zc[j + lw], zc[j - lw]),
+                                         df));
+            },
+            s3);
+        a[0] = a[1] = s3[0];
+        a[2] = a[3] = s3[1];
+        a[4] = s3[2];
         if constexpr (kMulti)
           for (int l = lw + NT; l <= L; l += NT) {
-            // lag l's products, chained as this lag's are
-            auto prod = [&](int j) -> T {
-              const T df = j + l < Wy ? d[j + l] : static_cast<T>(0);
-              return rn::mul(d[j], rn::add(rn::add(zc[j + l], zc[j - l]),
-                                           df));
-            };
-            T ax[5] = {sd, sd, se, se, prod(0)};
-            for (int j = 1; j < Wy; ++j) ax[4] = rn::add(ax[4], prod(j));
+            // lag l's products, summed as this lag's are
+            T ax[5] = {s3[0], s3[0], s3[1], s3[1], 0};
+            rn::row_sums<T, 1>(
+                Wy,
+                [&](int j, T v[1]) {
+                  const T df = j + l < Wy ? d[j + l] : static_cast<T>(0);
+                  v[0] = rn::mul(d[j], rn::add(rn::add(zc[j + l], zc[j - l]),
+                                               df));
+                },
+                ax + 4);
             post_extra(l, ax);
           }
       } else {
         for (int j = tid; j < Wy; j += NT)
           e[j] = rn::mul(d[j], rn::add(static_cast<T>(2) * zc[j], d[j]));
         block_sync<kWarp>();
-        rn::window_sums(zc, d, e, Wy, s, lw, ny, a);
+        auto sums = [&](int l, T out5[5]) {
+          rn::row_sums<T, 5>(
+              Wy,
+              [&](int j, T v[5]) {
+                rn::window_term<false>(zc, d, e, Wy, s, j, l, ny, v);
+              },
+              out5);
+        };
+        sums(lw, a);
         if constexpr (kMulti)
           for (int l = lw + NT; l <= L; l += NT) {
             T ax[5];
-            rn::window_sums(zc, d, e, Wy, s, l, ny, ax);
+            sums(l, ax);
             post_extra(l, ax);
           }
       }

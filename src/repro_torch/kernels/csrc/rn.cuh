@@ -32,32 +32,6 @@ __device__ __forceinline__ T acf_rho(T sx, T sxl, T sx2, T sxl2, T sxx, T m) {
                      : static_cast<T>(0);
 }
 
-// The five Eq. 9 masked window sums of one lag l (ref._window_delta_acf):
-// the delta d[0, W) with e = d (2 c + d) lies at global positions s + j of
-// a series of valid length ny, and c points at the window's first value in
-// a context that reaches c[j - l] and c[j + l].  a[0..4] receive the
-// deltas of sum x, sum x_lag, sum x^2, sum x_lag^2 and sum x x_lag; each
-// sum runs first to last and starts from its first term, as sum_in_order
-// does.
-template <typename T>
-__device__ __forceinline__ void window_sums(const T* c, const T* d,
-                                            const T* e, int W, int s, int l,
-                                            int ny, T a[5]) {
-  for (int q = 0; q < 5; ++q) a[q] = 0;
-  for (int j = 0; j < W; ++j) {
-    const int t = s + j;
-    const T h = t <= ny - 1 - l ? 1 : 0;
-    const T tl = t >= l ? 1 : 0;
-    const T dj = d[j];
-    const T df = j + l < W ? d[j + l] : 0;
-    const T inner = add(add(mul(c[j + l], h), mul(c[j - l], tl)),
-                        mul(df, h));
-    const T v[5] = {mul(dj, h), mul(dj, tl), mul(e[j], h), mul(e[j], tl),
-                    mul(dj, inner)};
-    for (int q = 0; q < 5; ++q) a[q] = j == 0 ? v[q] : add(a[q], v[q]);
-  }
-}
-
 // Terms term(lo), ..., term(hi - 1) taken by step from 0, first to last.
 // With kAhead the next kU terms are formed (loaded) while the current kU
 // are stepped, so a row in shared memory is read kU loads at a time.
@@ -153,6 +127,74 @@ __device__ __forceinline__ T measure_final(int measure, T acc, int L) {
   if (measure == 0) return quot(acc, fl);
   if (measure == 1) return root(quot(acc, fl));
   return acc;
+}
+
+// N sums side by side over terms term(lo), ..., term(hi - 1), each a
+// chain from +0 first to last; term(j, v) fills v[0, N).
+template <typename T, int N, typename Term>
+__device__ __forceinline__ void chain_n(Term term, int lo, int hi, T acc[N]) {
+  for (int q = 0; q < N; ++q) acc[q] = 0;
+  for (int j = lo; j < hi; ++j) {
+    T v[N];
+    term(j, v);
+    for (int q = 0; q < N; ++q) acc[q] = add(acc[q], v[q]);
+  }
+}
+
+// N sums side by side over n terms in XLA's CPU row-reduce order
+// (ref.row_sum_xla, rn::row_sum's walk): up to 32 terms one chain from +0;
+// past that each block chained from +0, the block sums chained within
+// blocks of theirs, and those sums chained.  The order of the reference's
+// jnp.sum over a window of the Eq. 9 sums (fused_round.py's roll form, the
+// Pallas scan body).
+template <typename T, int N, typename Term>
+__device__ __forceinline__ void row_sums(int n, Term term, T out[N]) {
+  if (n <= 32) {
+    chain_n<T, N>(term, 0, n, out);
+    return;
+  }
+  const int n1 = (n + 31) / 32;   // level-0 blocks
+  for (int q = 0; q < N; ++q) out[q] = 0;
+  for (int b1 = 0, b0 = 0, i = 0; b0 < n1; ++b1) {
+    T s1[N];
+    for (int q = 0; q < N; ++q) s1[q] = 0;
+    for (int end = b0 + row_block(n1, b1); b0 < end; ++b0) {
+      const int m = row_block(n, b0);
+      T c[N];
+      chain_n<T, N>(term, i, i + m, c);
+      for (int q = 0; q < N; ++q) s1[q] = add(s1[q], c[q]);
+      i += m;
+    }
+    for (int q = 0; q < N; ++q) out[q] = add(out[q], s1[q]);
+  }
+}
+
+// One window position j of the Eq. 9 masked sums of lag l: the delta d[0,
+// W) (d[j + l] read as 0 past W) with e = d (2 c + d) lies at global
+// positions s + j of a series of valid length ny, and c points at the
+// window's first value in a context that reaches c[j - l] and c[j + l].
+// v[0..4] receive the terms of the deltas of sum x, sum x_lag, sum x^2,
+// sum x_lag^2 and sum x x_lag, with the head and tail masks h, tl.  The
+// bilinear term takes one of the reference's two associations:
+// kEinsum, ref._window_delta_acf's basis (c[j + l] + d[j + l]) h + c[j - l]
+// tl; else the Pallas scan body's (c[j + l] h + c[j - l] tl) + d[j + l] h.
+template <bool kEinsum, typename T>
+__device__ __forceinline__ void window_term(const T* c, const T* d,
+                                            const T* e, int W, int s, int j,
+                                            int l, int ny, T v[5]) {
+  const int t = s + j;
+  const T h = t <= ny - 1 - l ? 1 : 0;
+  const T tl = t >= l ? 1 : 0;
+  const T dj = d[j];
+  const T df = j + l < W ? d[j + l] : static_cast<T>(0);
+  const T inner = kEinsum ? add(mul(add(c[j + l], df), h), mul(c[j - l], tl))
+                          : add(add(mul(c[j + l], h), mul(c[j - l], tl)),
+                                mul(df, h));
+  v[0] = mul(dj, h);
+  v[1] = mul(dj, tl);
+  v[2] = mul(e[j], h);
+  v[3] = mul(e[j], tl);
+  v[4] = mul(dj, inner);
 }
 
 }  // namespace rn

@@ -1,5 +1,5 @@
 // What the two Eq. 9 window kernels (acf_window_impact.cu, window_rows.cu)
-// share: candidate packing, the staging pass, the window sums and the
+// share: candidate packing, the staging pass, the bilinear terms and the
 // lag reduction (rn::reduce_terms); acf_impact.cu (Eq. 8) packs its
 // candidates and reduces their lags the same way.
 //
@@ -46,39 +46,42 @@ __device__ __forceinline__ Slot slot(int L, int G, int cpu, int M) {
   return Slot{q, static_cast<int>(threadIdx.x) - q * G, true};
 }
 
-// Eq. 9 window sums of one lag l are the five moment deltas of
-// rn::window_sums: sum d h, sum d tl, sum e h, sum e tl and
-// sum d ((c[j + l] h + c[j - l] tl) + d[j + l] h), with the head and tail
-// masks h, tl of window position j, d padded with zeros past W and c at
-// the window's first value.  Every chain runs first to last from its first
-// term, as rn::window_sums does; terms are formed kU at a time, ahead of
-// the chained adds.
 using rn::kU;
 
+// window_rows' bilinear term of window position j, lag l: the reference's
+// roll form, d[j] ((c[j + l] + c[j - l]) + d[j + l]), with d padded with
+// zeros past the window and c at the window's first value.
 template <typename T>
 __device__ __forceinline__ T bilinear(const T* c, const T* d, int j, int l) {
   return rn::mul(d[j], rn::add(rn::add(c[j + l], c[j - l]), d[j + l]));
 }
 
+// acf_window_impact's: ref._window_delta_acf's basis where every mask is 1,
+// d[j] ((c[j + l] + d[j + l]) + c[j - l]).
+template <typename T>
+__device__ __forceinline__ T bilinear_einsum(const T* c, const T* d, int j,
+                                             int l) {
+  return rn::mul(d[j], rn::add(rn::add(c[j + l], d[j + l]), c[j - l]));
+}
+
 // Where every mask is 1 (an interior window): sum d, sum e and the
-// bilinear sum, which serve all five moments, each first to last from its
-// first term.  Software-pipelined: the next kU terms are loaded and formed
-// while this group's are chained.
+// bilinear sum (bilinear_einsum), which serve all five moments, each a
+// chain first to last from +0, as XLA sums the reference's contraction
+// over the window.  Software-pipelined: the next kU terms are loaded and
+// formed while this group's are chained.
 template <typename T>
 __device__ __forceinline__ void interior_sums(const T* c, const T* d,
                                               const T* e, int W, int l,
                                               T& sd, T& se, T& sx) {
-  sd = d[0];
-  se = e[0];
-  sx = bilinear(c, d, 0, l);
-  int j = 1;
+  sd = se = sx = 0;
+  int j = 0;
   if (j + kU <= W) {
     T dv[kU], ev[kU], pv[kU];
 #pragma unroll
     for (int k = 0; k < kU; ++k) {
       dv[k] = d[j + k];
       ev[k] = e[j + k];
-      pv[k] = bilinear(c, d, j + k, l);
+      pv[k] = bilinear_einsum(c, d, j + k, l);
     }
     for (j += kU; j + kU <= W; j += kU) {
       T dn[kU], en[kU], pn[kU];
@@ -86,7 +89,7 @@ __device__ __forceinline__ void interior_sums(const T* c, const T* d,
       for (int k = 0; k < kU; ++k) {
         dn[k] = d[j + k];
         en[k] = e[j + k];
-        pn[k] = bilinear(c, d, j + k, l);
+        pn[k] = bilinear_einsum(c, d, j + k, l);
       }
 #pragma unroll
       for (int k = 0; k < kU; ++k) {
@@ -108,7 +111,7 @@ __device__ __forceinline__ void interior_sums(const T* c, const T* d,
   for (; j < W; ++j) {
     sd = rn::add(sd, d[j]);
     se = rn::add(se, e[j]);
-    sx = rn::add(sx, bilinear(c, d, j, l));
+    sx = rn::add(sx, bilinear_einsum(c, d, j, l));
   }
 }
 

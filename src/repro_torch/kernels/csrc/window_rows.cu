@@ -27,17 +27,24 @@
 // start, ny, its lag's table column and p0 entry up front, then gathers
 // its share of the context; the lane that gathers z[i] inside the window
 // also copies d[i] and forms e[i] = d (2 z + d); d is padded with L zeros.
-// One barrier (__syncwarp at L <= 32).  Interior fast path: where
-// ys >= L and ys + Wy <= ny - L, the head cut is Wy and the tail cut 0 for
-// every lag, so the prefix sums cd and ce (from 0.0f, as the plain
-// version's exclusive prefix sums start) are taken whole, and cd - 0 is
-// exact; the lane forms them beside its lag's bilinear chain (from 0.0f).
-// Other candidates walk the window with the head/tail cuts ch and ct per
-// lag, unchanged.  Each lane stores its lag's measure term; the
-// candidate's first lane reduces the terms (win::reduce_lags, XLA's
-// row-reduce order) after one more barrier.  Tiny = 1e-30 in Eq. 2 (fused_round.py:236).  Products are
-// rounded on their own (rn.cuh, no fused multiply-add) and sums run first
-// to last, as in the plain version, so the output equals it bit for bit.
+// One barrier (__syncwarp at L <= 32).  Each lane then walks the window
+// once for its lag: the prefix sums of d and e in XLA's cumsum order
+// (groups of 16 chained from +0, each partial plus the totals of the
+// groups before its own: the reference's jnp.cumsum over the window axis),
+// read at its head and tail cuts ch and ct, and its bilinear terms
+// d[j] ((z[j + l] + z[j - l]) + d[j + l]) in XLA's row-reduce order
+// (blocks of rn::row_block chained from +0, the block sums chained: the
+// reference's jnp.sum over the window); it stores its lag's measure term,
+// and the candidate's first lane reduces the terms (win::reduce_lags,
+// XLA's row-reduce order) after one more barrier.  Tiny = 1e-30 in Eq. 2
+// (fused_round.py:236).  Products are rounded on their own (rn.cuh, no
+// fused multiply-add) and every sum runs in the plain version's order, so
+// the output equals it bit for bit.  An interior candidate (every head and
+// tail mask 1) walks the same sums without the cuts, a group of 16 at a
+// time.  Windows of up to 256 values (the cumsum's two levels).  (A first
+// form had two lanes write the prefix sums to shared memory behind one more
+// barrier: 1.2-1.8x the time of the chained form before it, against
+// 0.98-1.47x for this walk; PERF.md.)
 // Lanes: a batch of B series (dyws [B, K, Wy], ystarts [B, K], y [B, nyb],
 // table [B, 5, L], ny [B], p0 [B, L] -> out [B, K]) is one launch, grid
 // row blockIdx.y a series, the packing planned for all B K candidates;
@@ -103,41 +110,69 @@ window_rows_kernel(const float* __restrict__ dyws,
   if (L <= 32) __syncwarp(); else __syncthreads();
 
   if (live) {
+    // interior: every head and tail mask 1 (ch = Wy, ct = 0), so the walk
+    // needs no cuts, only the scan's groups and the reduce's blocks
     const bool interior = ys >= L && ys + Wy <= ny - L;
     const float* c = ctx + L;
     for (int l = l0; l <= L; l += G) {
       if (l != l0) lag_loads(l);
-      float cd, ce, dsxx;   // running sums, from 0
-      float dsx, dsx2, cd_t, ce_t;
-      cd = ce = dsxx = 0.0f;
+      // One walk over the window: the prefix sums of d and e in XLA's
+      // cumsum order (groups of 16 chained from +0, a partial plus the
+      // totals of the groups before its own), read at the cuts, and the
+      // bilinear terms in XLA's row-reduce order (blocks of
+      // rn::row_block, each chained from +0, the block sums chained).
+      float gd = 0.0f, ge = 0.0f, bd = 0.0f, be = 0.0f;
+      float blk = 0.0f, dsxx = 0.0f;
+      float dsx, dsx2, cd_t = 0.0f, ce_t = 0.0f;
+      int bend = rn::row_block(Wy, 0), b = 0;
       if (interior) {
+        for (int g0 = 0; g0 < Wy; g0 += 16) {
+          const int g1 = min(g0 + 16, Wy);
+          if (g0 > 0) {
+            bd = rn::add(bd, gd);
+            be = rn::add(be, ge);
+            gd = ge = 0.0f;
+          }
 #pragma unroll 4
-        for (int j = 0; j < Wy; ++j) {
-          const float pj = win::bilinear(c, d, j, l);
-          cd = rn::add(cd, d[j]);
-          ce = rn::add(ce, e[j]);
-          dsxx = rn::add(dsxx, pj);
+          for (int j = g0; j < g1; ++j) {
+            gd = rn::add(gd, d[j]);
+            ge = rn::add(ge, e[j]);
+            blk = rn::add(blk, win::bilinear(c, d, j, l));
+            if (j + 1 == bend) {
+              dsxx = rn::add(dsxx, blk);
+              blk = 0.0f;
+              bend += rn::row_block(Wy, ++b);
+            }
+          }
         }
-        dsx = cd;
-        dsx2 = ce;
-        cd_t = ce_t = 0.0f;
+        dsx = rn::add(gd, bd);
+        dsx2 = rn::add(ge, be);
       } else {
         // head keeps ys + j <= ny-1-l  <=>  j < ny - l - ys  (a prefix);
         // tail keeps ys + j >= l       <=>  j >= l - ys      (a suffix),
         // taken as the total minus the prefix below l - ys.
         const int ch = min(max(ny - l - ys, 0), Wy);
         const int ct = min(max(l - ys, 0), Wy);
-        dsx = dsx2 = cd_t = ce_t = 0.0f;
+        dsx = dsx2 = 0.0f;
         for (int j = 0; j < Wy; ++j) {
-          if (j == ch) { dsx = cd; dsx2 = ce; }
-          if (j == ct) { cd_t = cd; ce_t = ce; }
-          cd = rn::add(cd, d[j]);
-          ce = rn::add(ce, e[j]);
-          dsxx = rn::add(dsxx, win::bilinear(c, d, j, l));
+          gd = rn::add(gd, d[j]);
+          ge = rn::add(ge, e[j]);
+          if (j + 1 == ch) { dsx = rn::add(gd, bd); dsx2 = rn::add(ge, be); }
+          if (j + 1 == ct) { cd_t = rn::add(gd, bd); ce_t = rn::add(ge, be); }
+          if ((j & 15) == 15 && j + 1 < Wy) {
+            bd = rn::add(bd, gd);
+            be = rn::add(be, ge);
+            gd = ge = 0.0f;
+          }
+          blk = rn::add(blk, win::bilinear(c, d, j, l));
+          if (j + 1 == bend) {
+            dsxx = rn::add(dsxx, blk);
+            blk = 0.0f;
+            bend += rn::row_block(Wy, ++b);
+          }
         }
-        if (ch == Wy) { dsx = cd; dsx2 = ce; }
-        if (ct == Wy) { cd_t = cd; ce_t = ce; }
       }
+      const float cd = rn::add(gd, bd), ce = rn::add(ge, be);
       const float rho = rn::acf_rho(
           rn::add(tab[0], dsx), rn::add(tab[1], rn::sub(cd, cd_t)),
           rn::add(tab[2], dsx2), rn::add(tab[3], rn::sub(ce, ce_t)),
@@ -162,6 +197,7 @@ extern "C" int window_rows_f32(const void* dyws, const void* ystarts,
                                int B, void* stream) {
   if (B < 1 || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
   win::Plan pl;
+  if (Wy < 1 || Wy > 256) return static_cast<int>(cudaErrorInvalidValue);
   const size_t cand = (3 * Wy + 4 * L) * sizeof(float);
   cudaError_t err = win::plan(K, L, cand, &pl, 0, B);
   if (err == cudaSuccess) err = win::allow_smem(window_rows_kernel, pl.smem);

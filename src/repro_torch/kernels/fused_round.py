@@ -41,26 +41,23 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ops as _ops
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.acf_impact import MEASURE_CODE
+from repro_torch.kernels.prefix_sum import prefix_sum_plain
 from repro_torch.kernels.ref import lane_col, take
 
 
-def _cumsum_in_order(x):
-    """Inclusive prefix sums over the first axis, one term at a time
-    (``torch.cumsum``'s order is not specified)."""
-    out = [x[0]]
-    for k in range(1, x.shape[0]):
-        out.append(out[-1] + x[k])
-    return torch.stack(out)
+def _cumsum_xla(x, dim: int = -1):
+    """Inclusive prefix sums over ``dim`` in XLA's cumsum order (a blocked
+    scan of base 16 in ``x``'s type, ``prefix_sum.prefix_sum_plain``): the
+    order of the reference's ``jnp.cumsum`` along either axis of a
+    ``[K, Wy]``, ``[K, nyb + Wy]`` or ``[K, 5, L]`` array."""
+    x = torch.movedim(x, dim, -1).contiguous()
+    return torch.movedim(prefix_sum_plain(x), -1, dim)
 
 
-def _prefix_in_order(x):
-    """``[K, W + 1]`` exclusive prefix sums of ``x [K, W]``, one term at a
-    time (``torch.cumsum``'s order is not specified; see
-    ``ref.sum_in_order``)."""
-    cols = [torch.zeros_like(x[:, 0])]
-    for j in range(x.shape[1]):
-        cols.append(cols[-1] + x[:, j])
-    return torch.stack(cols, dim=1)
+def _prefix_xla(x):
+    """``[K, W + 1]`` exclusive prefix sums of ``x [K, W]``: the
+    reference's ``pad(jnp.cumsum(x, axis=1), ((0, 0), (1, 0)))``."""
+    return F.pad(_cumsum_xla(x), (1, 0))
 
 
 def _head_tail_sums(d, e, ystarts, ny, L):
@@ -68,8 +65,8 @@ def _head_tail_sums(d, e, ystarts, ny, L):
     l = torch.arange(1, L + 1, device=d.device)
     # head keeps abs_t <= ny-1-l  <=>  j < ny - l - s   (contiguous prefix);
     # tail keeps abs_t >= l       <=>  j >= l - s       (contiguous suffix).
-    cdz = _prefix_in_order(d)
-    cez = _prefix_in_order(e)
+    cdz = _prefix_xla(d)
+    cez = _prefix_xla(e)
     c_head = torch.clamp(ny - l[None, :] - ystarts[:, None], 0, Wy).long()
     c_tail = torch.clamp(l[None, :] - ystarts[:, None], 0, Wy).long()
     dsx = torch.gather(cdz, 1, c_head)
@@ -84,9 +81,11 @@ def _moment_deltas(d, ctx, ystarts, ny, *, L: int):
     deltas ``d [K, Wy]`` given their series context ``ctx [K, Wy + 2L]``
     (``ctx[k, i] = y[start_k - L + i]``).
 
+    The head and tail sums gather XLA's cumsum order (:func:`_prefix_xla`).
     The bilinear term reads the lag-shifted context through shift views
-    (``unfold``) for all lags at once and sums over the window in order
-    (the kernel's order, see ``ref.sum_in_order``).
+    (``unfold``) for all lags at once and sums over the window in XLA's
+    row-reduce order (``ref.row_sum_xla``), the order of the reference's
+    roll form ``jnp.sum(d * g, axis=1)``.
     """
     K, Wy = d.shape
     e = d * (2.0 * ctx[:, L:L + Wy] + d)
@@ -96,7 +95,7 @@ def _moment_deltas(d, ctx, ystarts, ny, *, L: int):
     bwd = win[:, :L].flip(1)                        # s = L - l
     d_f = F.pad(d, (0, L)).unfold(1, Wy, 1)[:, 1:]  # d[j + l], zero past Wy
     G = (fwd + bwd) + d_f                           # [K, L, Wy]
-    dsxx = _ref.sum_in_order(d[:, None, :] * G)
+    dsxx = _ref.row_sum_xla(d[:, None, :] * G)
     return torch.stack([dsx, dsxl, dsx2, dsxl2, dsxx], dim=1)  # [K, 5, L]
 
 
@@ -108,9 +107,9 @@ def _moment_deltas_ref(d, ctx, ystarts, ny, *, L: int):
     dsx, dsxl, dsx2, dsxl2 = _head_tail_sums(d, e, ystarts, ny, L)
     d_pad = F.pad(d, (0, L))
     dsxx = torch.stack(
-        [torch.sum(d * (ctx[:, L + lag:L + lag + Wy]
-                        + ctx[:, L - lag:L - lag + Wy]
-                        + d_pad[:, lag:lag + Wy]), dim=1)
+        [_ref.row_sum_xla(d * (ctx[:, L + lag:L + lag + Wy]
+                               + ctx[:, L - lag:L - lag + Wy]
+                               + d_pad[:, lag:lag + Wy]))
          for lag in range(1, L + 1)], dim=1)
     return torch.stack([dsx, dsxl, dsx2, dsxl2, dsxx], dim=1)  # [K, 5, L]
 
@@ -238,7 +237,7 @@ def prefix_moment_rows(y, dyws, ystarts, ok, ny, *, L: int):
     cols = starts[:, None] + torch.arange(Wy, device=y.device)[None, :]
     place = torch.zeros((K, nyb + Wy), dtype=dt, device=y.device).scatter(
         1, cols, d)[:, :nyb]
-    d_ex = _cumsum_in_order(place) - place
+    d_ex = _cumsum_xla(place, 0) - place
     # per-candidate context of the running reconstruction z = y + D_{<j}
     kk = torch.arange(Wy + 2 * L, device=y.device)
     gidx = starts[:, None] + kk[None, :]
@@ -251,7 +250,7 @@ def prefix_acf_rows_ref(y, dyws, ystarts, ok, agg_table, ny, *, L: int):
     """ACF rows ``[K, L]`` after each rank prefix of windowed removals (see
     :func:`prefix_moment_rows`)."""
     dt = y.dtype
-    cum = _cumsum_in_order(prefix_moment_rows(y, dyws, ystarts, ok, ny, L=L))
+    cum = _cumsum_xla(prefix_moment_rows(y, dyws, ystarts, ok, ny, L=L), 0)
     cum = cum + agg_table[None]
     l = torch.arange(1, L + 1, device=y.device)
     m = (ny - l).to(dt)[None, :]
@@ -267,7 +266,8 @@ def prefix_devs_plain(y, dyws, ystarts, ok, agg_table, p0, ny, eps=None, *,
     L + Wy on the right) and the running moment table start from ``y`` and
     ``agg_table``; candidate k's delta ``dyws[k] * ok[k]`` at
     ``clip(ystarts[k], 0, nyb - 1)`` gives trial moments (window sums
-    first to last) and the trial deviation ``devs[k]``.  Then the candidate
+    in XLA's row-reduce order, the order of the Pallas body's ``jnp.sum``)
+    and the trial deviation ``devs[k]``.  Then the candidate
     commits to ``z`` and to the table: always (``greedy=False``) or where
     ``ok[k] & (devs[k] <= eps)`` (``greedy=True``).  Returns ``devs [K]``;
     lane by lane (``[B, K]``) for a batch.
@@ -310,7 +310,7 @@ def prefix_devs_plain(y, dyws, ystarts, ok, agg_table, p0, ny, eps=None, *,
             + F.pad(d, (0, L))[dsh] * head
         terms = torch.stack([d * head, d * tail, e * head, e * tail,
                              d * inner])                          # [5, L, Wy]
-        trial = agg5 + _ref.sum_in_order(terms)
+        trial = agg5 + _ref.row_sum_xla(terms)
         rho = _ref.acf_from_table(trial, m)
         dk = _ref.measure_rows(rho[None], p0, measure)[0]
         devs.append(dk)

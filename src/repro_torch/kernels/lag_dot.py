@@ -3,19 +3,18 @@
 
 ``lag_dot_cuda`` launches the hand-written kernel of ``csrc/lag_dot.cu``
 for card tensors and computes the plain version, :func:`lag_dot_plain`,
-for CPU tensors.  The two sum in different orders (the kernel over time
-tiles, the plain version left to right, as the JAX reference does), so
-they agree to rounding, not bit for bit.  The self (default), cross
-(``b=``) and halo'd (``halo=``, an L-point continuation of ``b`` past the
-chunk end) forms all read one extended operand ``b_ext`` of length
-``n + L``: the plain version builds it, the kernel reads ``b`` and
-``halo`` in place.
+for CPU tensors.  Both sum each lag's products one add at a time from +0,
+first to last (the JAX reference's order), so they agree bit for bit.  The
+self (default), cross (``b=``) and halo'd (``halo=``, an L-point
+continuation of ``b`` past the chunk end) forms all read one extended
+operand ``b_ext`` of length ``n + L``: the plain version builds it, the
+kernel reads ``b`` and ``halo`` in place.
 
-Lanes.  The self and cross forms also take a batch of series ``a [B, n]``
-(and ``b [B, n]``) and give ``[B, L]``: one launch, a grid row of time
-tiles for each lane, each lane's sum the bits of its launch alone (the
-counterpart of ``vmap`` over the TPU kernel, which gives it a batch grid
-axis).  The halo form takes one series.
+Lanes.  Every form also takes a batch of series ``a [B, n]`` (with ``b [B,
+n]``, ``halo [B, L]``) and gives ``[B, L]``: one launch, a grid row a lane,
+each lane's sum the bits of its launch alone (the counterpart of ``vmap``
+over the TPU kernel, which gives it a batch grid axis).  The partitioned
+mode's halo'd contributions of T partitions are one launch.
 """
 from __future__ import annotations
 
@@ -30,11 +29,11 @@ _SYMBOL = {torch.float64: "lag_dot_f64", torch.float32: "lag_dot_f32"}
 
 def extended_operand(a: torch.Tensor, b=None, halo=None, *,
                      L: int) -> torch.Tensor:
-    """``b_ext [n + L]``: ``b`` (default ``a``) followed by ``halo[:L]``,
-    or by L zeros."""
+    """``b_ext [..., n + L]``: ``b`` (default ``a``) followed by
+    ``halo[..., :L]``, or by L zeros."""
     b_base = a if b is None else b
     if halo is not None:
-        return torch.cat([b_base, halo[:L].to(b_base.dtype)])
+        return torch.cat([b_base, halo[..., :L].to(b_base.dtype)], dim=-1)
     return F.pad(b_base, (0, L))
 
 
@@ -43,47 +42,32 @@ def lag_dot_plain(a: torch.Tensor, b=None, halo=None, *,
     """Plain PyTorch version: each lag's products ``a_t * b_ext_{t+l}``
     summed one add at a time over t, first to last (``ref.chain_sum``):
     the order in which the JAX reference's ``a @ shifted`` sums, compiled
-    op by op, so the Eq. 7 tables equal its bits.  Lane by lane for the
-    self form of ``a [B, n]``; card tensors are summed on the CPU."""
+    op by op (vmapped too), so the Eq. 7 tables equal its bits.  Lane by
+    lane for ``a [B, n]``; card tensors are summed on the CPU."""
     if a.device.type != "cpu":
         # the oracle of the card's kernel: a chain of n adds has no fast
         # parallel form, so it runs on the CPU and comes back
         return lag_dot_plain(a.cpu(), None if b is None else b.cpu(),
                              None if halo is None else halo.cpu(),
                              L=L).to(a.device)
-    if a.dim() == 2 and b is None and halo is None:
-        return torch.stack([lag_dot_plain(row, L=L) for row in a])
+    if a.dim() == 2:
+        return torch.stack([lag_dot_plain(
+            a[k], None if b is None else b[k],
+            None if halo is None else halo[k], L=L) for k in range(a.shape[0])])
     b_ext = extended_operand(a, b, halo, L=L)
     shifted = b_ext.unfold(-1, a.shape[-1], 1)[..., 1:L + 1, :]
     return _ref.chain_sum(a.unsqueeze(-2) * shifted)
 
 
-# scratch of the kernel's cross-block sum, per (stream, dtype, size): the
-# partials [B, ceil(n / tile), L] and a ticket counter a lane (0 between
-# launches)
-_SCRATCH: dict = {}
-
-
-def _scratch(a: torch.Tensor, B: int, nblocks: int, L: int, stream: int):
-    key = (a.device, stream, a.dtype, B, nblocks, L)
-    if key not in _SCRATCH:
-        _SCRATCH[key] = (
-            torch.empty((B, nblocks, L), dtype=a.dtype, device=a.device),
-            torch.zeros((B,), dtype=torch.int32, device=a.device))
-    return _SCRATCH[key]
-
-
 def lag_dot_cuda(a: torch.Tensor, b=None, halo=None, *,
                  L: int) -> torch.Tensor:
-    """Lagged products ``[L]`` (``[B, L]`` for lanes ``a``/``b [B, n]``): the
-    CUDA kernel for card tensors (one launch: ``b`` and ``halo`` are read
-    in place, the zero extension and the cross-block sum happen in the
-    kernel), the plain version for CPU tensors."""
+    """Lagged products ``[L]`` (``[B, L]`` for lanes ``a [B, n]``, with
+    ``b [B, n]`` and ``halo [B, L]``): the CUDA kernel for card tensors
+    (one launch: ``b`` and ``halo`` are read in place and the zero
+    extension happens in the kernel), the plain version for CPU tensors."""
     if a.device.type != "cuda":
         return lag_dot_plain(a, b, halo, L=L)
     lanes = a.dim() == 2
-    if lanes and halo is not None:
-        raise ValueError("lag_dot: the halo form takes one series")
     B = a.shape[0] if lanes else 1
     n = a.shape[-1] if a.dim() in (1, 2) else 0
     if a.dim() not in (1, 2) or n < 1 or L < 1 or B < 1:
@@ -96,8 +80,10 @@ def lag_dot_cuda(a: torch.Tensor, b=None, halo=None, *,
     if b is not None:
         b = b.contiguous()
     if halo is not None:
-        halo = halo[:L].to(a.dtype).contiguous()
-    for name, t, size in (("b", b, tuple(a.shape)), ("halo", halo, (L,))):
+        halo = halo[..., :L].to(a.dtype).contiguous()
+    lead = tuple(a.shape[:-1])
+    for name, t, size in (("b", b, tuple(a.shape)), ("halo", halo,
+                                                      lead + (L,))):
         if t is None:
             continue
         if t.dtype != a.dtype:
@@ -107,16 +93,12 @@ def lag_dot_cuda(a: torch.Tensor, b=None, halo=None, *,
             raise ValueError(f"lag_dot: {name} must lie on {a.device} and "
                              f"hold {size} values, got {tuple(t.shape)} on "
                              f"{t.device}")
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    tile = _build.library("lag_dot").lag_dot_tile()
-    partials, ticket = _scratch(a, B, (n + tile - 1) // tile, L, stream)
-    out = torch.empty((B, L) if lanes else (L,), dtype=a.dtype,
-                      device=a.device)
-    fn = _build.bind("lag_dot", _SYMBOL[a.dtype], 6, 3)
+    out = torch.empty(lead + (L,), dtype=a.dtype, device=a.device)
+    fn = _build.bind("lag_dot", _SYMBOL[a.dtype], 4, 3)
     _build.check(fn(a.data_ptr(), (a if b is None else b).data_ptr(),
                     None if halo is None else halo.data_ptr(),
-                    partials.data_ptr(), ticket.data_ptr(), out.data_ptr(),
-                    n, L, B, stream),
+                    out.data_ptr(), n, L, B,
+                    torch.cuda.current_stream(a.device).cuda_stream),
                  "lag_dot")
     lag_dot_cuda.launches += 1
     if halo is not None:
@@ -125,5 +107,6 @@ def lag_dot_cuda(a: torch.Tensor, b=None, halo=None, *,
 
 
 lag_dot_cuda.launches = 0
-# the launches of the halo form among them (the stream's running aggregates)
+# the launches of the halo form among them (the stream's running aggregates
+# and the partitioned mode's contributions)
 lag_dot_cuda.halo_launches = 0

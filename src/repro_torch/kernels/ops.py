@@ -186,57 +186,57 @@ def _rank_single(cfg, agg, y, xr, alive, p0, n: int):
     return torch.where(removable, imp.to(dt), float("inf"))
 
 
-def _window_chunk(cfg, agg, y_ctx, ystart, dyw, p0, off, ny: int,
-                  use_kernel: bool):
-    """Eq. 9 impacts for one chunk of candidates against a 1-D haloed
-    context ``y_ctx`` (``y_ctx[k] = y_local[k - L]``, zeros out of range)."""
-    L = cfg.lags
+def _window_rows_impact(cfg, table, rows, dyw, starts, p0, ny: int,
+                        use_kernel: bool):
+    """Eq. 9 impacts ``[P]`` of the delta windows ``dyw [P, Wy]`` against
+    their context rows ``rows [P, Wy + 2L]`` (global ``starts [P]``): one
+    ``acf_window_impact`` launch, or its plain version."""
     if use_kernel:
-        k = torch.arange(dyw.shape[1] + 2 * L, device=y_ctx.device)
-        rows_ctx = y_ctx[ystart[:, None] + k[None, :]]       # [c, Wy + 2L]
         return acf_window_impact_cuda(
-            rows_ctx, dyw.contiguous(), (off + ystart).to(torch.int32),
-            agg_to_table(agg).contiguous(), p0, ny=ny, L=L,
-            measure=cfg.measure)
-    rows = _ref.acf_after_window_delta_ctx(agg, y_ctx, ystart, dyw, ny=ny,
-                                           off=off)
-    return _rows_dev(cfg, rows, p0)
+            rows.contiguous(), dyw.contiguous(), starts.to(torch.int32),
+            table.contiguous(), p0, ny=ny, L=cfg.lags, measure=cfg.measure)
+    return _rows_dev(cfg, _ref.acf_after_window_delta_rows(
+        table, rows, starts, dyw, ny=ny), p0)
 
 
-def _rank_window_ctx(cfg, agg, y_ctx, xr_loc, alive_loc, p0, off_y, ny: int,
-                     fallback: str):
-    """Exact windowed (Eq. 9) ranking impact for all local candidates.
-
-    ``y_ctx`` is the 1-D haloed target context (L left halo, >= L + W right
-    pad), ``off_y`` the chunk's global y offset.  Candidates whose segment
-    outgrew the static window ``W`` either take the single-delta estimate
-    (``fallback="single"``, done by :func:`ranking_impact`) or rank +inf
-    (``fallback="inf"``, the partitioned mode).  Returns
-    ``(impact, overgrown)``.
-    """
+def _rank_window(cfg, agg, y_ctx, xr_c, alive_c, p0, off_y, ny: int):
+    """Exact windowed (Eq. 9) ranking impact for every candidate of T
+    partitions (T = 1: a whole series): ``y_ctx [T, my + 2L + W]`` are the
+    haloed target contexts (``y_ctx[t, k] = y_t[k - L]``, zeros out of
+    range), ``xr_c`` and ``alive_c [T, mx]``, ``off_y [T]`` the global y
+    offsets.  Each impact chunk's candidates of every partition are one
+    batch of context rows, so on the card a chunk is one
+    ``acf_window_impact`` launch whatever T is (rows are independent, and
+    the table, ``p0`` and ``ny`` are global).  Returns ``(impact,
+    overgrown)``, ``[T, mx]`` each: candidates whose segment outgrew the
+    static window ``W`` keep their truncated-window value here."""
     from repro_torch.core.aggregates import alive_neighbors, segment_deltas
     dt = cfg.tdtype()
-    W = cfg.window
-    mx = xr_loc.shape[0]
-    idx = torch.arange(mx, dtype=torch.int32, device=xr_loc.device)
-    prev, nxt = alive_neighbors(alive_loc)
-    use_kernel = _kernel_eligible(cfg.backend, cfg.stat, cfg.measure,
-                                  xr_loc.device)
+    L, W = cfg.lags, cfg.window
+    T, mx = xr_c.shape
+    dev = xr_c.device
+    idx = torch.arange(mx, dtype=torch.int32, device=dev)
+    prev, nxt = alive_neighbors(alive_c)
+    use_kernel = _kernel_eligible(cfg.backend, cfg.stat, cfg.measure, dev)
+    offs = torch.as_tensor(off_y, device=dev).reshape(T, 1)
+    table = agg_to_table(agg)
     chunk = min(cfg.impact_chunk, mx)
     imps, spans = [], []
     for c in range(0, mx, chunk):
-        dwin, start, span = segment_deltas(xr_loc, prev, nxt,
-                                           idx[c:c + chunk], W)
-        dyw, ystart = x_window_to_y(cfg, dwin, start)
-        imps.append(_window_chunk(cfg, agg, y_ctx, ystart, dyw, p0, off_y,
-                                  ny, use_kernel).to(dt))
+        ci = idx[c:c + chunk].expand(T, -1)
+        dwin, start, span = segment_deltas(xr_c, prev, nxt, ci, W)
+        dyw, ystart = x_window_to_y(cfg, dwin, start)      # [T, k, Wy]
+        Wy = dyw.shape[-1]
+        k = torch.arange(Wy + 2 * L, device=dev)
+        rows = _ref.take(y_ctx, ystart[..., None] + k).reshape(-1, Wy + 2 * L)
+        imp = _window_rows_impact(cfg, table, rows, dyw.reshape(-1, Wy),
+                                  (offs + ystart).reshape(-1), p0, ny,
+                                  use_kernel)
+        imps.append(imp.reshape(T, -1).to(dt))
         spans.append(span)
-    imp, span = torch.cat(imps), torch.cat(spans)
-    overgrown = span > W
-    if fallback == "inf":
-        imp = torch.where(overgrown, float("inf"), imp)
-    removable = alive_loc & (idx > 0) & (idx < mx - 1)
-    return torch.where(removable, imp, float("inf")), overgrown
+    removable = alive_c & (idx > 0) & (idx < mx - 1)
+    imp = torch.where(removable, torch.cat(imps, -1), float("inf"))
+    return imp, torch.cat(spans, -1) > W
 
 
 def ranking_impact(cfg, agg, y, xr, alive, p0, n: int, *, rank=None):
@@ -251,18 +251,23 @@ def ranking_impact(cfg, agg, y, xr, alive, p0, n: int, *, rank=None):
         raise ValueError(f"unknown rank {rank!r}")
     L, W = cfg.lags, cfg.window
     y_ctx = F.pad(y, (L, L + W))
-    imp, overgrown = _rank_window_ctx(cfg, agg, y_ctx, xr, alive, p0, 0,
-                                      y.shape[0], fallback="single")
+    imp, overgrown = _rank_window(cfg, agg, y_ctx[None], xr[None],
+                                  alive[None], p0, 0, y.shape[0])
     imp_sd = _rank_single(cfg, agg, y, xr, alive, p0, n)
-    return torch.where(overgrown, imp_sd, imp).to(cfg.tdtype())
+    return torch.where(overgrown[0], imp_sd, imp[0]).to(cfg.tdtype())
 
 
 def chunk_ranking_impact(cfg, agg, y_ctx, xr_c, alive_c, p0, off_y, ny: int):
     """Partitioned-mode ranking: exact windowed impacts for one partition's
-    candidates (overgrown segments rank +inf)."""
-    imp, _ = _rank_window_ctx(cfg, agg, y_ctx, xr_c, alive_c, p0, off_y, ny,
-                              fallback="inf")
-    return imp
+    candidates (``y_ctx [my + 2L + W]``, ``xr_c`` and ``alive_c [mx]``),
+    or for T partitions with a leading axis (one launch an impact chunk
+    for all T, see :func:`_rank_window`).  Overgrown segments rank +inf."""
+    if xr_c.dim() == 1:
+        return chunk_ranking_impact(cfg, agg, y_ctx[None], xr_c[None],
+                                    alive_c[None], p0, off_y, ny)[0]
+    imp, overgrown = _rank_window(cfg, agg, y_ctx, xr_c, alive_c, p0, off_y,
+                                  ny)
+    return torch.where(overgrown, float("inf"), imp)
 
 
 def window_impact_at(cfg, agg, y, xr, prev, nxt, cand, p0):
@@ -274,11 +279,11 @@ def window_impact_at(cfg, agg, y, xr, prev, nxt, cand, p0):
     L, W = cfg.lags, cfg.window
     dwin, start, span = segment_deltas(xr, prev, nxt, cand, W)
     dyw, ystart = x_window_to_y(cfg, dwin, start)
-    y_ctx = F.pad(y, (L, L + W))
-    use_kernel = _kernel_eligible(cfg.backend, cfg.stat, cfg.measure,
-                                  xr.device)
-    imp = _window_chunk(cfg, agg, y_ctx, ystart, dyw, p0, 0, y.shape[0],
-                        use_kernel)
+    k = torch.arange(dyw.shape[1] + 2 * L, device=y.device)
+    rows = F.pad(y, (L, L + W))[ystart[:, None] + k]
+    imp = _window_rows_impact(
+        cfg, agg_to_table(agg), rows, dyw, ystart, p0, y.shape[0],
+        _kernel_eligible(cfg.backend, cfg.stat, cfg.measure, xr.device))
     interior = (cand > 0) & (cand < n - 1)
     return torch.where((span <= W) & interior, imp.to(cfg.tdtype()),
                        float("inf"))

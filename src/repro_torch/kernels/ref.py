@@ -185,23 +185,6 @@ def row_sum_xla(xw: torch.Tensor) -> torch.Tensor:
     return row_sum_xla(chain_sum(blocks))
 
 
-def sum_in_order(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
-    """Sum over ``dim`` one term at a time, first to last.
-
-    The Eq. 9 window sums (over window positions, not lags) take this
-    fixed order on every device, and the CUDA kernels repeat it (without
-    fused multiply-adds), so the card's ranking keys equal the CPU's bit
-    for bit and a run's trajectory does not depend on where it ran.
-    ``torch.sum``'s order is not specified and differs between CPU builds
-    and the card.  Sums over lags take :func:`row_sum_xla`'s order.
-    """
-    x = torch.movedim(x, dim, 0)
-    acc = x[0]
-    for i in range(1, x.shape[0]):
-        acc = acc + x[i]
-    return acc
-
-
 def div_exact(x: torch.Tensor, k: int) -> torch.Tensor:
     """``x / k`` rounded once on every device.  On the card, a division by
     a Python scalar multiplies by the scalar's reciprocal (rounded twice);
@@ -306,31 +289,48 @@ def acf_impact_ref(y, dval, agg_table, p0, *, L: int, measure: str = "mae"):
 # Eq. 9 — hypothetical ACF after a windowed (segment) delta
 # ---------------------------------------------------------------------------
 
-def _window_delta_acf(agg, dwins, abs_t, y_at, y_fwd, y_bwd, *, ny: int):
+def _window_delta_acf(agg, dwins, abs_t, rows, *, ny: int):
     """Shared Eq. 9 core: hypothetical ACF ``[P, L]`` from per-candidate
-    delta windows ``dwins [P, W]`` at global positions ``abs_t [P, W]``,
-    the series at the window ``y_at [P, W]`` and its lag-shifted values
-    ``y_fwd``/``y_bwd [P, W, L]`` (zero out of range).
+    delta windows ``dwins [P, W]`` at global positions ``abs_t [P, W]``
+    and the candidates' context rows ``rows [P, W + 2L]`` (``rows[p, L +
+    j]`` the series at window position j; zero out of range).
 
-    The five moment deltas are masked sums over the window, taken first to
-    last (:func:`sum_in_order`) with every product rounded on its own: the
+    The five moment deltas are the reference's one contraction
+    ``einsum("paw,pawl->pal", [d, d, e, e, d], basis)`` with its bilinear
+    basis ``(y_fwd + d_fwd) * head + y_bwd * tail`` (that association), and
+    XLA sums a contraction over the window one product at a time from +0
+    (as :func:`chain_sum`), every product rounded on its own: the
     ``acf_window_impact`` kernel repeats this arithmetic bit for bit.
     """
     L = agg[0].shape[-1]
     P, W = dwins.shape
-    dtype = y_at.dtype
-    head, tail = head_tail_masks(abs_t, ny, L, dtype)        # [P, W, L]
-    d = dwins[..., None]                                     # [P, W, 1]
-    e = dwins * (2.0 * y_at + dwins)
-    d_fwd = F.pad(dwins, (0, L)).unfold(1, W, 1)[:, 1:]      # [P, L, W]
-    d_fwd = d_fwd.transpose(1, 2)                            # d[j + l]
-    inner = (y_fwd * head + y_bwd * tail) + d_fwd * head
-    terms = torch.stack([d * head, d * tail, e[..., None] * head,
-                         e[..., None] * tail, d * inner], dim=2)
-    rows = as_table(agg)[None] + sum_in_order(terms, dim=1)  # [P, 5, L]
+    dtype = rows.dtype
     l = torch.arange(1, L + 1, device=dwins.device)
+    sums = []
+    # candidates in blocks of about 2^18 (window position, lag) terms on
+    # the CPU (cache-sized), 2^24 on the card (few launches; under 2 GB)
+    step = max(1, (1 << (24 if rows.is_cuda else 18)) // (W * L))
+    for p0 in range(0, P, step):
+        dw, r, at = (v[p0:p0 + step] for v in (dwins, rows, abs_t))
+        # window position first: [W, p, L]
+        head = (at.T[..., None] <= ny - 1 - l).to(dtype)
+        tail = (at.T[..., None] >= l).to(dtype)
+        d = dw.T[..., None]
+        e = (dw * (2.0 * r[:, L:L + W] + dw)).T[..., None]
+        y_fwd = r[:, L + 1:].unfold(1, L, 1)[:, :W]           # y[t + l]
+        y_bwd = r.unfold(1, L, 1)[:, :W].flip(-1)             # y[t - l]
+        d_fwd = F.pad(dw, (0, L))[:, 1:].unfold(1, L, 1)[:, :W]  # d[j + l]
+        basis = (y_fwd + d_fwd).transpose(0, 1) * head \
+            + y_bwd.transpose(0, 1) * tail
+        terms = torch.stack([d * head, d * tail, e * head, e * tail,
+                             d * basis], dim=1)               # [W, 5, p, L]
+        acc = terms[0] + 0.0
+        for j in range(1, W):
+            acc = acc + terms[j]
+        sums.append(acc)
+    table = as_table(agg)[None] + torch.cat(sums, 1).transpose(0, 1)
     m = (ny - l).to(dtype)[None, :]
-    return acf_from_table(rows, m)
+    return acf_from_table(table, m)
 
 
 def acf_after_window_delta_ctx(agg, y_ctx: torch.Tensor, starts: torch.Tensor,
@@ -343,15 +343,9 @@ def acf_after_window_delta_ctx(agg, y_ctx: torch.Tensor, starts: torch.Tensor,
     context positions must be zero."""
     L = agg[0].shape[-1]
     _, W = dwins.shape
-    dev = dwins.device
-    j = torch.arange(W, device=dev)
-    l = torch.arange(1, L + 1, device=dev)
-    loc_t = starts[:, None] + j[None, :]                     # [P, W] local
-    abs_t = off + loc_t                                      # [P, W] global
-    y_at = y_ctx[loc_t + L]
-    y_fwd = y_ctx[loc_t[..., None] + L + l]                  # [P, W, L]
-    y_bwd = y_ctx[loc_t[..., None] + L - l]
-    return _window_delta_acf(agg, dwins, abs_t, y_at, y_fwd, y_bwd, ny=ny)
+    k = torch.arange(W + 2 * L, device=dwins.device)
+    rows = y_ctx[starts[:, None] + k[None, :]]               # [P, W + 2L]
+    return acf_after_window_delta_rows(agg, rows, off + starts, dwins, ny=ny)
 
 
 def candidate_contexts(y: torch.Tensor, starts: torch.Tensor, *, L: int,
@@ -370,16 +364,10 @@ def acf_after_window_delta_rows(agg, y_rows: torch.Tensor,
     """Eq. 9 hypothetical ACF ``[P, L]`` from per-candidate
     ``[P, W + 2L]`` context rows (the kernel's input layout, see
     :func:`candidate_contexts`) and global starts."""
-    L = agg[0].shape[-1]
-    _, W = dwins.shape
-    dev = dwins.device
-    j = torch.arange(W, device=dev)
-    l = torch.arange(1, L + 1, device=dev)
+    W = dwins.shape[1]
+    j = torch.arange(W, device=dwins.device)
     abs_t = starts_abs[:, None] + j[None, :]                 # [P, W] global
-    y_at = y_rows[:, L:L + W]
-    y_fwd = y_rows[:, L + j[:, None] + l[None, :]]           # [P, W, L]
-    y_bwd = y_rows[:, L + j[:, None] - l[None, :]]
-    return _window_delta_acf(agg, dwins, abs_t, y_at, y_fwd, y_bwd, ny=ny)
+    return _window_delta_acf(agg, dwins, abs_t, y_rows, ny=ny)
 
 
 def acf_window_impact_ref(y_rows, dwins, starts_abs, agg_table, p0, *,

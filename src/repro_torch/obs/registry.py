@@ -42,7 +42,8 @@ its CUDA kernels, so ``kernels/_build.py`` registers its builder as
 ``kernels.build``, whose ``_cache_size()`` counts the libraries ``nvcc``
 built in this process.  A zero delta across stream windows (a tail
 window included) says no window built anything.  CUDA-graph captures
-join the watermark when the port captures graphs (ROADMAP A3).
+join the watermark when the port captures graphs (ROADMAP, "Carried
+for the first benchmark PR").
 """
 from __future__ import annotations
 

@@ -1,8 +1,8 @@
 """CameoStore — the on-disk physical layer under the compressor (port of
 ``repro/store/store.py``: the same bytes for the same writes).
 
-In the JAX package application code reaches this layer through the
-``repro.api`` façade, which the port does not have yet (ROADMAP A6).
+Application code reaches this layer through the façade
+(``repro_torch.api``, the port of ``repro.api``).
 Result fields may be torch tensors on any device; they become numpy here
 (``_np``), and block reconstructions run on the store's ``device``.
 
@@ -40,7 +40,7 @@ refuses it loudly rather than serve a partial catalog, but reopening with
 ``mode="a"`` **recovers**: the store rolls back to the journal's
 checkpoint (the last published footer, byte-identical), and the acked
 pushes past it replay deterministically through the streaming façade
-(the JAX package's ``repro.api``; the port's is ROADMAP A6) — so a crash
+(``repro_torch.api``, the port of ``repro.api``) — so a crash
 never loses an acked push, and the recovered file is byte-identical to a clean run of
 the same feed.  All fsyncs honor the ``CAMEO_FSYNC=0`` escape hatch
 (tests), which downgrades power-loss durability to process-crash

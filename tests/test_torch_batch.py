@@ -295,7 +295,7 @@ def test_compress_batch_validates_inputs(monkeypatch):
             mode="sequential"), device="cpu")
     with pytest.raises(ValueError, match=r"\[B, n\]"):
         tc.compress_batch(np.zeros(64), tc.CameoConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="A7"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tc.compress_batch(np.zeros((2, 64)), tc.CameoConfig(), mesh=object())
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for call in (lambda: tc.compress_batch(_corpus(128, 2), tc.CameoConfig()),

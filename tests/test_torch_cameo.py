@@ -272,21 +272,30 @@ def test_decompress_without_device_needs_cuda(monkeypatch):
     assert rec.device.type == "cpu" and rec.shape == (10,)
 
 
-def test_unported_surfaces_raise():
-    """compress_batch over a device mesh is not ported yet (ROADMAP A7);
-    the sequential mode, select="scan" and compress_batch on one device
-    are, and run."""
+def test_unported_surfaces_raise(tmp_path):
+    """What was not ported runs now: the sequential mode, select="scan",
+    compress_batch on one device and over a device mesh (one gloo rank,
+    equal to the unsharded batch; ``tests/test_torch_parallel.py`` holds
+    more ranks)."""
+    import torch.distributed as dist
+    from repro_torch import sharding
     x = _series(128)
     for cfg in (tc.CameoConfig(mode="sequential", lags=8),
                 tc.CameoConfig(select="scan", lags=8)):
         res = tc.compress(x, cfg, device="cpu")
         assert res.kept.shape == (128,) and bool(res.kept[0] & res.kept[-1])
-    with pytest.raises(NotImplementedError, match="ROADMAP.*A7"):
-        tc.compress_batch(np.stack([x, x]), tc.CameoConfig(), mesh=object(),
-                          device="cpu")
     res = tc.compress_batch(np.stack([x, x]), tc.CameoConfig(lags=8),
                             device="cpu")
     assert res.kept.shape == (2, 128) and bool(res.kept[:, [0, -1]].all())
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv",
+                            world_size=1, rank=0)
+    try:
+        got = tc.compress_batch(np.stack([x, x]), tc.CameoConfig(lags=8),
+                                mesh=sharding.mesh_1d("cpu"))
+    finally:
+        dist.destroy_process_group()
+    for a, b in zip(got, res):
+        assert torch.equal(a, b)
 
 
 def test_port_and_chip_smoke_import_no_jax():
@@ -375,15 +384,15 @@ def test_chip_smoke_phases_rehearsal():
                  ("aus_elec", "aus_elec", 2000, 480, (1, 2), False)),
         stream_mv=(2, 900, 256), log=lambda s: None)
     # prefix_sum's one row and pair of rows (and, with uk_elec, its pairs
-    # of four more lengths); the window kernels: the main cases, then a
-    # boundary-heavy one each (acf_window_impact's ranking chunk at kappa =
-    # 1 only); then the five kernels of the rounds path on lanes
+    # of four more lengths); the window kernels: the main cases (with
+    # acf_window_impact's partitioned ranking chunk), then a boundary-heavy
+    # one each; then the five kernels of the rounds path on lanes
     # (prefix_devs at uk_elec only)
     assert [(k["dataset"], k["name"]) for k in report["kernels"]] == [
         (d, k) for d in ("uk_elec", "aus_elec")
         for k in ("lag_dot",) + ("prefix_sum",) * (6 if d == "uk_elec" else 2)
         + ("acf_impact", "window_rows", "window_rows")
-        + ("acf_window_impact",) * (3 if d == "uk_elec" else 2)
+        + ("acf_window_impact",) * 3
         + ("acf_impact", "prefix_devs", "prefix_devs")] + [
         (d, k) for d in ("uk_elec", "aus_elec")
         for k in ("lag_dot", "prefix_sum", "acf_impact", "window_rows")
@@ -406,7 +415,7 @@ def test_chip_smoke_phases_rehearsal():
                for k in pd)
     rows = chip_smoke.kernel_rows(report)
     assert [r["name"] for r in rows] == list(chip_smoke.WRAPPERS)
-    assert [len(r["shapes"]) for r in rows] == [4, 6, 6, 5, 5, 10]
+    assert [len(r["shapes"]) for r in rows] == [4, 6, 6, 6, 5, 10]
     ps = [k for k in report["kernels"] if k["name"] == "prefix_sum"]
     assert [k["shape"].split(" x n=")[1] for k in ps[2:6]] == [
         f"{n} float64" for n in chip_smoke.PREFIX_SUM_LENGTHS]

@@ -360,46 +360,45 @@ def test_acf_impact_schedule_exact(dtype, kappa, L, n_sm, regime):
         np.testing.assert_allclose(got.numpy(), ref, rtol=tol, atol=tol)
 
 
-def _lag_dot_schedule(a, b_ext, L, tile=512):
-    """``csrc/lag_dot.cu``'s order: per tile of ``tile`` points and lag,
-    lane j (of 32) sums a[t] b_ext[t + l] over t = t0 + j, t0 + j + 32, ...
-    in order, the shuffle tree halves the lanes into lane 0 (offsets 16, 8,
-    4, 2, 1), then the blocks' partials are summed in block order."""
+def _lag_dot_schedule(a, b_ext, L, tile=1024):
+    """``csrc/lag_dot.cu``'s order: one thread a lag, its products
+    a[t] b_ext[t + l] chained one add at a time from +0, tile after tile of
+    ``tile`` points staged in shared memory, t first to last."""
     n = a.shape[0]
-    out = torch.zeros(L, dtype=a.dtype)
+    acc = torch.zeros(L, dtype=a.dtype)
+    lags = torch.arange(1, L + 1)
     for t0 in range(0, n, tile):
-        cnt = min(tile, n - t0)
-        part = torch.zeros(L, dtype=a.dtype)
-        for lag in range(1, L + 1):
-            prod = a[t0:t0 + cnt] * b_ext[t0 + lag:t0 + lag + cnt]
-            rows = F.pad(prod, (0, (-cnt) % 32)).view(-1, 32)
-            lanes = torch.zeros(32, dtype=a.dtype)
-            for row in rows:
-                lanes = lanes + row
-            for off in (16, 8, 4, 2, 1):
-                lanes = torch.cat([lanes[:off] + lanes[off:2 * off],
-                                   lanes[off:]])
-            part[lag - 1] = lanes[0]
-        out = out + part
-    return out
+        for t in range(t0, min(t0 + tile, n)):
+            acc = acc + a[t] * b_ext[t + lags]
+    return acc
 
 
-@pytest.mark.parametrize("form", ["self", "cross", "halo"])
-@pytest.mark.parametrize("n", [300, 512, 1500])
+@pytest.mark.parametrize("form", ["self", "cross", "halo", "halo_lanes"])
+@pytest.mark.parametrize("n", [300, 512, 1500, 2048])
 def test_lag_dot_schedule_matches_plain(n, form):
-    """The one-launch kernel's order (n below, at and above one tile)
-    within 1e-10 x max|out| of the plain version (a matmul, in another
-    order), for the self, cross (b=) and halo (halo=) forms."""
+    """The kernel's order (n below, at and above one tile) equals the plain
+    version bit for bit, for the self, cross (b=) and halo (halo=) forms,
+    and for the halo form on lanes (a, b [B, n], halo [B, L]: the
+    partitioned mode's T partitions in one launch), each lane as alone."""
     L = 24
     rng = np.random.default_rng(n)
-    a = T(rng.standard_normal(n))
-    b = T(rng.standard_normal(n)) if form != "self" else None
-    halo = T(rng.standard_normal(L + 3)) if form == "halo" else None
-    b_ext = lag_dot_ext(a, b, halo, L=L)
-    want = lag_dot_plain(a, b, halo, L=L)
-    got = _lag_dot_schedule(a, b_ext, L)
-    scale = float(torch.max(torch.abs(want)))
-    torch.testing.assert_close(got, want, rtol=0, atol=1e-10 * scale)
+    B = 3 if form == "halo_lanes" else 1
+    a = T(rng.standard_normal((B, n)))
+    b = T(rng.standard_normal((B, n))) if form != "self" else None
+    halo = T(rng.standard_normal((B, L + 3))) if "halo" in form else None
+    if B == 1:
+        a, b, halo = (None if v is None else v[0] for v in (a, b, halo))
+        want = lag_dot_plain(a, b, halo, L=L)
+        got = _lag_dot_schedule(a, lag_dot_ext(a, b, halo, L=L), L)
+    else:
+        want = lag_dot_plain(a, b, halo, L=L)
+        got = torch.stack([_lag_dot_schedule(
+            a[k], lag_dot_ext(a[k], b[k], halo[k], L=L), L) for k in range(B)])
+        for k in range(B):
+            torch.testing.assert_close(
+                want[k], lag_dot_plain(a[k], b[k], halo[k], L=L), rtol=0,
+                atol=0)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 # ---------------------------------------------------------------------------
@@ -507,8 +506,7 @@ def _uk_inputs(device, L=48, n=17520, nb=18432):
 @pytest.mark.gpu
 def test_gpu_lag_dot_one_launch_same_bits(cuda):
     """One call is one launch of the kernel (torch.profiler sees one device
-    kernel, after a first call has made the scratch), and two calls give
-    the same bits."""
+    kernel), and two calls give the same bits."""
     from torch.profiler import ProfilerActivity, profile
     _, y64, *_ = _uk_inputs(cuda)
     first = lag_dot_cuda(y64, L=48)
@@ -524,18 +522,49 @@ def test_gpu_lag_dot_one_launch_same_bits(cuda):
 
 @pytest.mark.gpu
 def test_gpu_lag_dot(cuda):
+    """The kernel equals the plain version bit for bit (C12): the self,
+    cross and halo forms on uk_elec's row, and the halo form on lanes."""
     _, y64, *_ = _uk_inputs(cuda)
     got = lag_dot_cuda(y64, L=48)
     want = lag_dot_plain(y64, L=48)
-    torch.cuda.synchronize()
-    assert float(torch.max(torch.abs(got - want))) <= \
-        1e-10 * float(torch.max(torch.abs(want)))
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
     rng = np.random.default_rng(0)
     b, halo = T(rng.standard_normal(18432)).to(cuda), \
         T(rng.standard_normal(48)).to(cuda)
+    torch.testing.assert_close(lag_dot_cuda(y64, b, L=48),
+                               lag_dot_plain(y64, b, L=48), rtol=0, atol=0)
     torch.testing.assert_close(lag_dot_cuda(y64, b, halo, L=48),
                                lag_dot_plain(y64, b, halo, L=48),
-                               rtol=1e-10, atol=1e-6)
+                               rtol=0, atol=0)
+    a8 = T(rng.standard_normal((8, 2190))).to(cuda)
+    b8 = T(rng.standard_normal((8, 2190))).to(cuda)
+    h8 = T(rng.standard_normal((8, 48))).to(cuda)
+    got = lag_dot_cuda(a8, b8, h8, L=48)
+    torch.testing.assert_close(got, lag_dot_plain(a8, b8, h8, L=48),
+                               rtol=0, atol=0)
+    for k in range(8):
+        assert torch.equal(got[k], lag_dot_cuda(a8[k], b8[k], h8[k], L=48))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dataset", ["uk_elec", "aus_elec"])
+def test_gpu_eq7_tables_at_init_equal_cpu(cuda, dataset):
+    """ROADMAP C12: the rounds mode's Eq. 7 table at init on the card (the
+    lag_dot and prefix_sum kernels) against the CPU's plain versions: the
+    count of differing entries, printed, is 0."""
+    from repro_torch.data.synthetic import make_dataset
+    L, kappa, n = (48, 1, 17520) if dataset == "uk_elec" else (7, 48, 230688)
+    cfg = t_cameo.CameoConfig(eps=1e-2, lags=L, kappa=kappa)
+    x = make_dataset(dataset, seed=0, length=n)
+    nb = t_cameo._round_bucket(n, cfg)
+    xp = T(np.pad(x, (0, nb - n)))[None]
+    nv = torch.tensor([n], dtype=torch.int32)
+    tables = [t_cameo._rounds_init(xp.to(d), nv.to(d), cfg)[0][5].cpu()
+              for d in (cuda, torch.device("cpu"))]
+    differ = int(torch.sum(tables[0] != tables[1]))
+    print(f"{dataset}: {differ} of {tables[0].numel()} Eq. 7 table "
+          f"entries differ")
+    assert differ == 0
 
 
 def _assert_kernel_close(got, want):

@@ -239,7 +239,7 @@ def test_lag_chain_parts_past_32_lags():
     for L, differs in ((32, False), (33, True), (48, True), (365, True)):
         rows, p0 = _rows(L, "float32")
         terms = torch.abs(torch.from_numpy(rows - p0))
-        chain = t_ref.sum_in_order(terms)
+        chain = t_ref.chain_sum(terms)
         blocks = t_ref.row_sum_xla(terms)
         assert bool(torch.any(chain != blocks)) == differs, L
 

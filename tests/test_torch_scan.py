@@ -45,6 +45,7 @@ from repro_torch.core import cameo as tc
 from repro_torch.core.acf import acf_from_aggregates as t_acf_from_aggregates
 from repro_torch.kernels import fused_round as t_fused
 from repro_torch.kernels import ref as t_ref
+from test_torch_lag_order import row_sum_walk
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)          # chip_smoke.py, at the repository root
@@ -94,6 +95,11 @@ def _cfg(name):
                           backend="reference", **OPTS[name])
 
 
+# window lengths of the strict Pallas walks (one block of XLA's row-reduce
+# and past it)
+PALLAS_WY = (16, 40)
+
+
 def _reference_main(out_path, jobs):
     """Subprocess entry: JAX's end-to-end results for ``jobs``, saved as
     npz (the caller picks the compilation through XLA_FLAGS)."""
@@ -104,6 +110,17 @@ def _reference_main(out_path, jobs):
         res[f"{job}/kept"] = np.asarray(r.kept)
         res[f"{job}/iters"] = np.asarray(r.iters)
         res[f"{job}/deviation"] = np.asarray(r.deviation)
+    # the Pallas prefix walk in interpret mode, with its inputs
+    names = ("y", "dyws", "starts", "ok", "table", "p0")
+    for Wy in PALLAS_WY:
+        inputs = _prefix_setup(seed=11, Wy=Wy)
+        res.update({f"pallas{Wy}/{k}": v for k, v in zip(names, inputs)})
+        for measure in ("mae", "rmse", "cheb"):
+            for greedy in (False, True):
+                res[f"pallas{Wy}/{measure}/{greedy}"] = np.asarray(
+                    j_fused.prefix_devs_pallas(
+                        *map(jnp.asarray, inputs), 150, 0.005, L=8,
+                        measure=measure, greedy=greedy, interpret=True))
     np.savez(out_path, **res)
 
 
@@ -138,26 +155,34 @@ def strict(tmp_path_factory):
 
 @pytest.mark.parametrize("greedy", [False, True])
 @pytest.mark.parametrize("measure", ["mae", "rmse", "cheb"])
-def test_prefix_devs_plain_matches_pallas(measure, greedy):
-    y, dyws, starts, ok, table, p0 = _prefix_setup(seed=11)
+def test_prefix_devs_plain_matches_pallas(measure, greedy, strict):
+    """Bit for bit against the Pallas walk compiled strictly (C13), at
+    Wy = 16 and 40 (past one block of XLA's row-reduce); within 1e-15 of
+    the default-compiled one in this process, which divides by its rsqrt
+    product (C1)."""
     L, ny, eps = 8, 150, 0.005
-    want = np.asarray(j_fused.prefix_devs_pallas(
-        jnp.asarray(y), jnp.asarray(dyws), jnp.asarray(starts),
-        jnp.asarray(ok), jnp.asarray(table), jnp.asarray(p0), ny, eps, L=L,
-        measure=measure, greedy=greedy, interpret=True))
-    args = (T(y), T(dyws), T(starts), T(ok), T(table), T(p0),
-            torch.tensor(ny, dtype=torch.int32), eps)
-    got = t_fused.prefix_devs_plain(*args, L=L, measure=measure,
-                                    greedy=greedy)
-    # CPU tensors: the wrapper is the plain version
-    torch.testing.assert_close(t_fused.prefix_devs_cuda(
-        *args, L=L, measure=measure, greedy=greedy), got, rtol=0, atol=0)
-    np.testing.assert_allclose(got.numpy(), want, rtol=1e-9, atol=1e-9)
-    if greedy:
-        # the run commits and skips: the decisions tell the two forms apart
-        take = ok & (want <= eps)
-        assert 0 < take.sum() < ok.sum()
-        np.testing.assert_array_equal(ok & (got.numpy() <= eps), take)
+    for Wy in PALLAS_WY:
+        names = ("y", "dyws", "starts", "ok", "table", "p0")
+        y, dyws, starts, ok, table, p0 = (strict[f"pallas{Wy}/{k}"]
+                                          for k in names)
+        args = (T(y), T(dyws), T(starts), T(ok), T(table), T(p0),
+                torch.tensor(ny, dtype=torch.int32), eps)
+        got = t_fused.prefix_devs_plain(*args, L=L, measure=measure,
+                                        greedy=greedy)
+        # CPU tensors: the wrapper is the plain version
+        torch.testing.assert_close(t_fused.prefix_devs_cuda(
+            *args, L=L, measure=measure, greedy=greedy), got, rtol=0, atol=0)
+        want = strict[f"pallas{Wy}/{measure}/{greedy}"]
+        np.testing.assert_array_equal(got.numpy(), want)
+        jit = np.asarray(j_fused.prefix_devs_pallas(
+            *map(jnp.asarray, (y, dyws, starts, ok, table, p0)), ny, eps,
+            L=L, measure=measure, greedy=greedy, interpret=True))
+        np.testing.assert_allclose(got.numpy(), jit, rtol=0, atol=1e-15)
+        if greedy:
+            # the run commits and skips: the decisions tell the forms apart
+            take = ok & (want <= eps)
+            assert 0 < take.sum() < ok.sum()
+            np.testing.assert_array_equal(ok & (got.numpy() <= eps), take)
 
 
 def test_prefix_devs_plain_greedy_matches_oracle():
@@ -273,8 +298,9 @@ def _schedule_walk(y, dyws, ystarts, ok, table, p0, ny, eps, *, L, measure,
     each chunk's ok ranks walked, the others filled from the committed
     deviation after the last ok rank before them; interior candidates (s >=
     L and s + Wy + L <= ny) with the sums of d and e shared by every lag and
-    one chain of products per lag; boundary candidates with the masked sums
-    of ``rn::window_sums``, lag by lag."""
+    one sum of products per lag; boundary candidates with the masked sums
+    of ``rn::window_term<false>``, lag by lag; every window sum in XLA's
+    row-reduce order (``rn::row_sums``)."""
     K, Wy = dyws.shape
     nyb, dt = y.shape[0], y.dtype
     z = F.pad(y, (L, L + Wy))
@@ -287,6 +313,9 @@ def _schedule_walk(y, dyws, ystarts, ok, table, p0, ny, eps, *, L, measure,
         for j in range(1, terms.shape[-1]):
             acc = acc + terms[..., j]
         return acc
+
+    def window_sum(terms):           # rn::row_sums over the last axis
+        return row_sum_walk([terms[..., j] for j in range(terms.shape[-1])])
 
     def deviation(sums):
         trial = agg + sums
@@ -311,24 +340,24 @@ def _schedule_walk(y, dyws, ystarts, ok, table, p0, ny, eps, *, L, measure,
             e = d * (2.0 * zc[L:L + Wy] + d)
             d_pad = F.pad(d, (0, L))
             if s >= L and s + Wy + L <= ny:
-                sd, se = in_order(d), in_order(e)
+                sd, se = window_sum(d), window_sum(e)
                 prod = torch.stack([d * ((zc[L + lag:L + lag + Wy]
                                           + zc[L - lag:L - lag + Wy])
                                          + d_pad[lag:lag + Wy])
                                     for lag in range(1, L + 1)])
                 sums = torch.stack([sd.expand(L), sd.expand(L),
                                     se.expand(L), se.expand(L),
-                                    in_order(prod)])
+                                    window_sum(prod)])
             else:
-                sums = None
+                cols = []
                 for j in range(Wy):
                     h = (s + j <= ny - 1 - l).to(dt)
                     tl = (s + j >= l).to(dt)
                     inner = (zc[L + j + l] * h + zc[L + j - l] * tl) \
                         + d_pad[j + l] * h
-                    v = torch.stack([d[j] * h, d[j] * tl, e[j] * h,
-                                     e[j] * tl, d[j] * inner])
-                    sums = v if sums is None else sums + v
+                    cols.append(torch.stack([d[j] * h, d[j] * tl, e[j] * h,
+                                             e[j] * tl, d[j] * inner]))
+                sums = row_sum_walk(cols)
             dev, trial = deviation(sums)
             out[k] = dev
             if not greedy or dev <= eps:
@@ -362,6 +391,23 @@ def test_prefix_devs_schedule_matches_plain(ok_kind, measure, greedy, dtype):
     s = np.clip(starts, 0, 159)
     interior = (s >= L) & (s + 12 + L <= ny)
     assert interior.any() and (~interior).any()
+
+
+@pytest.mark.parametrize("greedy", [False, True])
+@pytest.mark.parametrize("Wy", [33, 40, 64])
+def test_prefix_devs_schedule_long_windows(Wy, greedy):
+    """Past 32 window values the kernel's window sums walk XLA's blocks
+    (``rn::row_sums``), as the plain walk does: bit for bit."""
+    L, ny = 8, 150
+    y, dyws, starts, ok, table, p0 = _walk_corpus(8, "mixed", K=40, Wy=Wy)
+    args = [T(a) for a in (y, dyws)] + [T(starts), T(ok)] + [
+        T(a) for a in (table, p0)]
+    kw = dict(L=L, measure="mae")
+    curve = t_fused.prefix_devs_plain(*args, ny, **kw)
+    eps = torch.sort(curve).values[20]
+    want = t_fused.prefix_devs_plain(*args, ny, eps, greedy=greedy, **kw)
+    got = _schedule_walk(*args, ny, eps, greedy=greedy, **kw)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 # ---------------------------------------------------------------------------

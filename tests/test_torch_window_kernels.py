@@ -8,8 +8,11 @@ through Python models of their schedules, one rounded operation at a time:
     package), and for ``window_rows`` exactly where the head cut is the
     whole window and the tail cut empty for every lag;
 (b) interior candidates take the fast path (the lag-free sums of d and e,
-    then one bilinear chain per lag, then the lags reduced in order) and
-    boundary candidates the unchanged masked sums; both models equal the
+    then one bilinear sum per lag, then the lags reduced in order) and
+    boundary candidates the masked sums (``acf_window_impact``: chains from
+    +0, the reference's contraction; ``window_rows``: one walk a lag, the
+    prefix sums in XLA's cumsum order and the bilinear sums in its
+    row-reduce order, past 16 and 32 values too); both models equal the
     plain versions bit for bit, in float32 and float64
     (``acf_window_impact``) and float32 (``window_rows``), under mae, rmse
     and cheb, on boundary-heavy starts;
@@ -92,13 +95,17 @@ def _reduce(terms, measure, L):
     return t_ref.sqrt_rn(acc) if measure == "rmse" else acc
 
 
-def _chain(terms, start=None):
-    """Sum over the last axis first to last, from ``start`` (default: the
-    first term, as rn::window_sums starts)."""
-    acc = terms[..., 0] if start is None else start + terms[..., 0]
-    for j in range(1, terms.shape[-1]):
+def _chain(terms):
+    """Sum over the last axis first to last, from +0."""
+    acc = torch.zeros_like(terms[..., 0])
+    for j in range(terms.shape[-1]):
         acc = acc + terms[..., j]
     return acc
+
+
+def _row_sum(terms):
+    """``rn::row_sum`` over the last axis (XLA's row-reduce order)."""
+    return row_sum_walk([terms[..., j] for j in range(terms.shape[-1])])
 
 
 def _finish(sums, table, p0, m, measure, L):
@@ -112,9 +119,10 @@ def _awi_schedule(ctx, dwins, starts, table, p0, *, ny, L, measure,
                   fast=True):
     """``acf_window_impact.cu``'s schedule: e formed where d is staged; an
     interior candidate (``fast``) forms sum d and sum e once and one
-    bilinear chain per lag; a boundary one the five masked sums of
-    ``rn::window_sums``, every head/tail product rounded; the lags reduced
-    in order."""
+    bilinear chain per lag, d ((c[j + l] + d[j + l]) + c[j - l]); a
+    boundary one the five masked sums of ``rn::window_term<true>``, every
+    head/tail product rounded; every window sum a chain from +0; the lags
+    reduced by ``rn::row_sum``."""
     P, W = dwins.shape
     dt = dwins.dtype
     l = torch.arange(1, L + 1)
@@ -128,8 +136,8 @@ def _awi_schedule(ctx, dwins, starts, table, p0, *, ny, L, measure,
         if fast and bool(interior[p]):
             sd, se = _chain(d), _chain(e)
             prod = torch.stack([d * ((c[L + lag:L + lag + W]
-                                      + c[L - lag:L - lag + W])
-                                     + d_pad[lag:lag + W])
+                                      + d_pad[lag:lag + W])
+                                     + c[L - lag:L - lag + W])
                                 for lag in range(1, L + 1)])      # [L, W]
             sums = torch.stack([sd.expand(L), sd.expand(L), se.expand(L),
                                 se.expand(L), _chain(prod)])
@@ -138,8 +146,8 @@ def _awi_schedule(ctx, dwins, starts, table, p0, *, ny, L, measure,
             for j in range(W):
                 h = (s + j <= ny - 1 - l).to(dt)
                 tl = (s + j >= l).to(dt)
-                inner = (c[L + j + l] * h + c[L + j - l] * tl) \
-                    + d_pad[j + l] * h
+                inner = (c[L + j + l] + d_pad[j + l]) * h \
+                    + c[L + j - l] * tl
                 cols.append(torch.stack([d[j] * h, d[j] * tl, e[j] * h,
                                          e[j] * tl, d[j] * inner]))
             sums = _chain(torch.stack(cols, dim=-1))
@@ -147,49 +155,70 @@ def _awi_schedule(ctx, dwins, starts, table, p0, *, ny, L, measure,
     return torch.stack(out)
 
 
+def _row_block(n, b):
+    """``rn::row_block``: block b of one level of XLA's row-reduce."""
+    if n <= 32:
+        return n
+    pad = -n % 32
+    lo, nw = pad // 2, (n + pad) // 32
+    return 32 - lo if b == 0 else 32 - (pad - lo) if b == nw - 1 else 32
+
+
+def _rows_walk(c, d, d_pad, e, lag, ch, ct, L, Wy):
+    """One lag's walk over the window in ``window_rows.cu``: the prefix
+    sums of d and e in XLA's cumsum order (groups of 16 chained from +0,
+    a partial plus the totals of the groups before it) read at the cuts
+    ``ch`` and ``ct``, and the bilinear terms in XLA's row-reduce order
+    (blocks of ``_row_block`` chained from +0, the block sums chained)."""
+    zero = torch.zeros((), dtype=d.dtype)
+    gd = ge = bd = be = blk = dsxx = zero
+    dsx = dsx2 = cd_t = ce_t = zero
+    bend, b = _row_block(Wy, 0), 0
+    for j in range(Wy):
+        gd, ge = gd + d[j], ge + e[j]
+        if j + 1 == ch:
+            dsx, dsx2 = gd + bd, ge + be
+        if j + 1 == ct:
+            cd_t, ce_t = gd + bd, ge + be
+        if j % 16 == 15 and j + 1 < Wy:
+            bd, be, gd, ge = bd + gd, be + ge, zero, zero
+        blk = blk + d[j] * ((c[L + j + lag] + c[L + j - lag])
+                            + d_pad[j + lag])
+        if j + 1 == bend:
+            dsxx, blk = dsxx + blk, zero
+            b += 1
+            bend += _row_block(Wy, b)
+    cd, ce = gd + bd, ge + be
+    return torch.stack([dsx, cd - cd_t, dsx2, ce - ce_t, dsxx])
+
+
 def _rows_schedule(y, dyws, ystarts, table, ny, p0, *, L, measure,
                    fast=True):
     """``window_rows.cu``'s schedule, float32: the context at the clipped
-    start; an interior candidate (``fast``) takes the prefix sums cd, ce
-    whole (from 0) beside one bilinear chain per lag (from 0), a boundary
-    one the walk with the head/tail cuts ch, ct of every lag; the lags
-    reduced in order."""
+    start; each lag's walk over the window (``_rows_walk``) with its head
+    and tail cuts (an interior candidate, ``fast``: the whole window and
+    none); the lags reduced by ``rn::row_sum``."""
     K, Wy = dyws.shape
     dt = y.dtype
     ny = int(ny)
-    l = torch.arange(1, L + 1)
-    m = (ny - l).to(dt)
+    m = (ny - torch.arange(1, L + 1)).to(dt)
     ctx = t_fused.candidate_context(y, ystarts, L=L, Wy=Wy)
     interior = t_ref.interior_windows(ystarts, Wy, L, ny)
-    zero = torch.zeros((), dtype=dt)
     out = []
     for k in range(K):
         ys, d, c = int(ystarts[k]), dyws[k], ctx[k]
         e = d * (2.0 * c[L:L + Wy] + d)
         d_pad = F.pad(d, (0, L))
-        prod = torch.stack([d * ((c[L + lag:L + lag + Wy]
-                                  + c[L - lag:L - lag + Wy])
-                                 + d_pad[lag:lag + Wy])
-                            for lag in range(1, L + 1)])          # [L, Wy]
-        dsxx = _chain(prod, zero)
-        if fast and bool(interior[k]):
-            cd, ce = _chain(d, zero), _chain(e, zero)
-            sums = torch.stack([cd.expand(L), cd.expand(L), ce.expand(L),
-                                ce.expand(L), dsxx])
-        else:
-            cdz = [zero]
-            cez = [zero]
-            for j in range(Wy):
-                cdz.append(cdz[-1] + d[j])
-                cez.append(cez[-1] + e[j])
-            rows = []
-            for lag in range(1, L + 1):
+        cols = []
+        for lag in range(1, L + 1):
+            if fast and bool(interior[k]):
+                ch, ct = Wy, 0
+            else:
                 ch = min(max(ny - lag - ys, 0), Wy)
                 ct = min(max(lag - ys, 0), Wy)
-                rows.append(torch.stack([cdz[ch], cdz[Wy] - cdz[ct], cez[ch],
-                                         cez[Wy] - cez[ct]]))
-            sums = torch.cat([torch.stack(rows, dim=1), dsxx[None]])
-        out.append(_finish(sums, table, p0, m, measure, L))
+            cols.append(_rows_walk(c, d, d_pad, e, lag, ch, ct, L, Wy))
+        out.append(_finish(torch.stack(cols, dim=1), table, p0, m, measure,
+                           L))
     return torch.stack(out)
 
 
@@ -229,7 +258,7 @@ def test_interior_test_is_all_masks_one(kappa, L, W, ny):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 @pytest.mark.parametrize("measure", MEASURES)
-@pytest.mark.parametrize("L,W", [(7, 3), (12, 16), (40, 16)])
+@pytest.mark.parametrize("L,W", [(7, 3), (12, 16), (40, 16), (12, 40)])
 def test_acf_window_impact_schedule_exact(L, W, measure, dtype):
     ny = 160
     y, table, p0, rng = _setup(ny, L, seed=5)
@@ -248,7 +277,7 @@ def test_acf_window_impact_schedule_exact(L, W, measure, dtype):
 
 
 @pytest.mark.parametrize("measure", MEASURES)
-@pytest.mark.parametrize("L,Wy", [(7, 3), (12, 16)])
+@pytest.mark.parametrize("L,Wy", [(7, 3), (12, 16), (12, 40)])
 def test_window_rows_schedule_exact(L, Wy, measure):
     ny, nyb = 150, 160
     y, table, p0, rng = _setup(ny, L, seed=6, nyb=nyb)
