@@ -31,12 +31,14 @@ Phases, each of which fails the run (non-zero exit) on a wrong result:
    update's prefix sums: one row, the pair of rows the main path launches,
    and pairs of 1, 17, 4,097 and 65,537 values) held exactly to its plain
    version on the CPU (XLA's cumsum order, jnp.cumsum's bits) and timed
-   beside torch.cumsum on the card; and an empty kernel, built and bound as
+   beside torch.cumsum on the card; dense_sxx (the dense update's bilinear
+   term, the reference's CPU order) held exactly to its plain version on a
+   round's delta; and an empty kernel, built and bound as
    the others, timed as the launch floor.  Then the kernels of the rounds
    path with a lane axis, one launch for a batch (uk_elec B = 16, aus_elec
    B = 4; lag_dot's self and cross forms, prefix_sum (the lanes' pairs of
-   rows), acf_impact, window_rows; prefix_devs 2 lanes of uk_elec's random
-   walk): each against its plain
+   rows), dense_sxx, acf_impact, window_rows; prefix_devs 2 lanes of
+   uk_elec's random walk): each against its plain
    version at its tolerance and, lane by lane, bit for bit against its
    one-lane launch;
 4. main paths — ``compress()`` on the card with, for each run, every
@@ -50,7 +52,8 @@ Phases, each of which fails the run (non-zero exit) on a wrong result:
    Backoff and sequential CRs are held within 5% of the
    same call on the CPU (run in two worker processes that start with
    phase 3 and go on beside the card's phases; the card-only run comes
-   first); the scan's CR is reported beside the CPU path's
+   first), and the backoff runs equal it in kept mask, iterations and the
+   deviation's bits; the scan's CR is reported beside the CPU path's
    (which runs the linearized branch, the card the greedy one) and the
    card's backoff CR.  Then the batch: ``compress_batch`` of uk_elec
    (B = 16, seeds 0..15) and aus_elec (B = 4), each lane held against its
@@ -106,6 +109,21 @@ Phases, each of which fails the run (non-zero exit) on a wrong result:
    ``compress_batch(mesh=)`` of 16 uk_elec stand-ins held to the unsharded
    batch, bit for bit; ``partitioned {...}`` lines and the card's name and
    power limit;
+   Then the baselines phase (``baselines/``, ``run_baselines``), eps =
+   1e-2: the five line-simplification ranks through ``compress_baseline``
+   on uk_elec and aus_elec at full length, each with the guarantee above;
+   PMC, Swing, Sim-Piece and FFT through ``acf_constrained_search`` at 8
+   steps, each deviation re-measured on the CPU; Gorilla's and Chimp's
+   bits per value equal to their loop forms; lag_dot, prefix_sum,
+   dense_sxx and segment_scan launched on the path; uk_elec's kept masks,
+   rounds, every round's deviation bits and the searches' parameters and
+   storage equal to the same calls on the CPU (run in two worker
+   processes that start after phase 4); ``baseline {...}`` lines with
+   rounds, CR and seconds, Sim-Piece's host seconds apart.  Then
+   segment_scan (the PMC and Swing scans) against its plain version at
+   tolerance 0 in both modes at both datasets' full lengths, at the error
+   bound each search settled on and 10 times it, timed with CUDA events
+   (its launches there do not count);
 5. the lock-step check — a scan round on uk_elec from one carry on the
    card: the greedy branch with the prefix_devs kernel and with its plain
    version must take the same candidates; then the seconds of each phase
@@ -142,6 +160,7 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch import baselines as _bl  # noqa: E402
 from repro_torch import obs  # noqa: E402
 from repro_torch import sharding as _shd  # noqa: E402
 from repro_torch.core import cameo  # noqa: E402
@@ -155,11 +174,13 @@ from repro_torch.data.synthetic import (dataset_cameo_kwargs,  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import acf_impact as _acf_impact  # noqa: E402
 from repro_torch.kernels import acf_window_impact as _awi  # noqa: E402
+from repro_torch.kernels import dense_sxx as _dense_sxx  # noqa: E402
 from repro_torch.kernels import fused_round as _fused  # noqa: E402
 from repro_torch.kernels import lag_dot as _lag_dot  # noqa: E402
 from repro_torch.kernels import ops as _ops  # noqa: E402
 from repro_torch.kernels import prefix_sum as _prefix_sum  # noqa: E402
 from repro_torch.kernels import ref as _ref  # noqa: E402
+from repro_torch.kernels import segment_scan as _segscan  # noqa: E402
 from repro_torch.store import CameoStore  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -172,14 +193,18 @@ WRAPPERS = {"lag_dot": _lag_dot.lag_dot_cuda,
             "window_rows": _fused.window_rows_cuda,
             "acf_window_impact": _awi.acf_window_impact_cuda,
             "prefix_devs": _fused.prefix_devs_cuda,
-            "prefix_sum": _prefix_sum.prefix_sum_cuda}
+            "prefix_sum": _prefix_sum.prefix_sum_cuda,
+            "dense_sxx": _dense_sxx.dense_sxx_cuda,
+            "segment_scan": _segscan.segment_scan_cuda}
 SOURCES = {"lag_dot": "src/repro_torch/kernels/csrc/lag_dot.cu",
            "acf_impact": "src/repro_torch/kernels/csrc/acf_impact.cu",
            "window_rows": "src/repro_torch/kernels/csrc/window_rows.cu",
            "acf_window_impact":
                "src/repro_torch/kernels/csrc/acf_window_impact.cu",
            "prefix_devs": "src/repro_torch/kernels/csrc/prefix_devs.cu",
-           "prefix_sum": "src/repro_torch/kernels/csrc/prefix_sum.cu"}
+           "prefix_sum": "src/repro_torch/kernels/csrc/prefix_sum.cu",
+           "dense_sxx": "src/repro_torch/kernels/csrc/dense_sxx.cu",
+           "segment_scan": "src/repro_torch/kernels/csrc/segment_scan.cu"}
 REPLACES = {"lag_dot": "src/repro/kernels/lag_dot.py:42",
             "acf_impact": "src/repro/kernels/acf_impact.py:93",
             "window_rows": "src/repro/kernels/fused_round.py:276",
@@ -187,7 +212,13 @@ REPLACES = {"lag_dot": "src/repro/kernels/lag_dot.py:42",
             "prefix_devs": "src/repro/kernels/fused_round.py:382",
             # XLA's jnp.cumsum, no Pallas kernel: aggregates.py:71,73 and
             # acf.py:52-53,77-78
-            "prefix_sum": "src/repro/core/aggregates.py:71"}
+            "prefix_sum": "src/repro/core/aggregates.py:71",
+            # the dense update's bilinear term, jnp's roll form on the CPU,
+            # no Pallas kernel
+            "dense_sxx": "src/repro/core/aggregates.py:93",
+            # XLA's jax.lax.scan of PMC (:36) and of Swing (:81), no Pallas
+            # kernel
+            "segment_scan": "src/repro/baselines/functional.py:36"}
 # Each output is held to its plain version elementwise: |got - want| <=
 # rtol |want| + floor max|want|.  The floor scales with the output, so an
 # output of the wrong scale (zeros, say) fails whatever the inputs' size.
@@ -201,18 +232,21 @@ REPLACES = {"lag_dot": "src/repro/kernels/lag_dot.py:42",
 TOL = {"lag_dot": (0.0, 0.0), "acf_impact": (0.0, 0.0),
        "window_rows": (0.0, 0.0), "acf_window_impact": (0.0, 0.0),
        "prefix_devs": (0.0, 0.0), "prefix_sum": (0.0, 0.0),
-       # lag_dot's library yardstick (conv1d) sums in its own order
-       "conv1d": (1e-10, 1e-10)}
+       "dense_sxx": (0.0, 0.0), "segment_scan": (0.0, 0.0),
+       # the library yardsticks (conv1d) of lag_dot and dense_sxx sum in
+       # their own order
+       "conv1d": (1e-10, 1e-10), "dense_sxx_conv1d": (1e-10, 1e-10)}
 DATASETS = ("uk_elec", "aus_elec")
 MEASURES = ("mae", "rmse", "cheb")
 EPS = 1e-2
 # the main paths of phase 4: (name, CameoConfig overrides, kernels the path
 # launches, whether its CR is held within 5% of the CPU path's)
 PATHS = {
-    "rounds": (dict(), ("lag_dot", "prefix_sum", "acf_impact",
+    "rounds": (dict(), ("lag_dot", "prefix_sum", "dense_sxx", "acf_impact",
                         "window_rows"), True),
-    "scan": (dict(select="scan"), ("lag_dot", "prefix_sum", "acf_impact",
-                                   "window_rows", "prefix_devs"), False),
+    "scan": (dict(select="scan"), ("lag_dot", "prefix_sum", "dense_sxx",
+                                   "acf_impact", "window_rows",
+                                   "prefix_devs"), False),
     "sequential": (dict(mode="sequential", hops=24, window=64),
                    ("lag_dot", "prefix_sum", "acf_impact",
                     "acf_window_impact"), True),
@@ -400,6 +434,65 @@ def prefix_sum_entry(device, name: str, x: torch.Tensor, lanes=None) -> dict:
                 **({"lanes": lanes} if lanes else {}))
 
 
+def dense_delta(y: torch.Tensor, ny: int, seed: int = 0) -> torch.Tensor:
+    """A round's dense delta on the target series ``y [nyb]``: a tenth of
+    its first ``ny`` points moved by 5% of the series' spread, zero
+    elsewhere."""
+    rng = np.random.default_rng(seed)
+    d = np.zeros(y.shape[-1])
+    at = rng.random(ny) < 0.1
+    d[:ny][at] = rng.standard_normal(int(at.sum())) * 0.05 * float(
+        torch.std(y[:ny].cpu()))
+    return torch.from_numpy(d).to(y.device)
+
+
+def dense_sxx_entry(device, name: str, y: torch.Tensor, d: torch.Tensor,
+                    ny, L: int, lanes=None) -> dict:
+    """dense_sxx on ``y``, ``d`` (``[nyb]``, or ``[B, nyb]`` with ``ny`` one
+    a lane) against its plain version on the CPU at tolerance 0, each lane
+    against its own launch; timed beside its plain version on the card."""
+    what = f"{name} dense_sxx {list(y.shape)}"
+    got = _dense_sxx.dense_sxx_cuda(y, d, ny, L)
+    ny_cpu = ny.cpu() if isinstance(ny, torch.Tensor) else ny
+    err = check_close(what, "dense_sxx", got, _dense_sxx.dense_sxx_plain(
+        y.cpu(), d.cpu(), ny_cpu, L).to(got.device))
+    if lanes:
+        require_lanes(what, got, lambda b: _dense_sxx.dense_sxx_cuda(
+            y[b], d[b], ny[b], L))
+    nyb, B = y.shape[-1], lanes or 1
+    nys = (ny.reshape(-1).expand(B) if isinstance(ny, torch.Tensor)
+           else torch.full((B,), ny)).cpu()
+    # reads y and d, writes [B, L]; z = y + d once a point, then a term of
+    # every unmasked (point, lag) is two products and an add, and its add
+    # into the lag's sum
+    terms = sum(max(int(n) - l, 0) for n in nys for l in range(1, L + 1))
+    bnd, by = bound_ms(2 * 8 * B * nyb + 8 * B * L,
+                       4.0 * terms + float(nys.sum()), FP64_FLOPS)
+    # the library's one call: a grouped two-channel convolution, lane b's
+    # [z, d] (zeros past its ny and L more) against its [d, y] (zeros past
+    # ny); output l is sum_t d_t z_{t+l} + y_t d_{t+l} over the unmasked t
+    live = (torch.arange(nyb, device=y.device)
+            < nys.to(y.device)[:, None]).to(y.dtype)
+    ym, dm = y.reshape(B, nyb) * live, d.reshape(B, nyb) * live
+    signal = F.pad(torch.stack([ym + dm, dm], 1).reshape(1, 2 * B, nyb),
+                   (0, L))
+    weight = torch.stack([dm, ym], 1)
+
+    def conv():
+        return F.conv1d(signal, weight, groups=B)[0, :, 1:].reshape(got.shape)
+    check_close(f"{what} conv1d yardstick", "dense_sxx_conv1d", conv(), got)
+    return dict(name="dense_sxx", shape=(f"B={lanes} lanes x " if lanes
+                                         else "") + f"nyb={nyb} L={L} "
+                                                    f"float64",
+                max_abs_err=err,
+                ms=device_ms(lambda: _dense_sxx.dense_sxx_cuda(y, d, ny, L),
+                             device),
+                plain_ms=device_ms(lambda: _dense_sxx.dense_sxx_plain(
+                    y, d, ny, L), device, reps=3, inner=3),
+                library_ms=device_ms(conv, device), bound_ms=bnd, bound_by=by,
+                **({"lanes": lanes} if lanes else {}))
+
+
 # lengths of prefix_sum's pairs of rows off the datasets' shapes: one value,
 # one group past XLA's 16, one value past a 4,096-value tile, and 17 tiles
 # (a cluster of 8 blocks, levels above the tiles)
@@ -411,7 +504,7 @@ def phase_kernels(device, name: str, length=None) -> list:
     shapes; one entry per kernel and shape (window_rows: its two tier
     launches of one full-size round together, then its boundary-heavy
     case)."""
-    cfg, *_, y64, _, _, _ = kernel_inputs(device, name, length)
+    cfg, _, _, ny, y64, *_ = kernel_inputs(device, name, length)
     L, nyb = cfg.lags, y64.shape[0]
     out = []
 
@@ -465,6 +558,11 @@ def phase_kernels(device, name: str, length=None) -> list:
         for n in PREFIX_SUM_LENGTHS:
             out.append(prefix_sum_entry(device, name, torch.from_numpy(
                 rng.standard_normal((2, n))).to(device)))
+
+    # dense_sxx, the dense update's bilinear term every round: the bucket's
+    # y and a round's delta
+    out.append(dense_sxx_entry(device, name, y64, dense_delta(y64, ny), ny,
+                               L))
 
     # acf_impact: Eq. 8 impacts of every point, float32 (the rounds), and
     # float64 (the sequential init)
@@ -863,8 +961,8 @@ def phase_kernels_lanes(device, name: str, B: int, length=None,
         bound_ms(B * (nyb + L) * 8, B * 2.0 * nyb * L, FP64_FLOPS), B,
         device_ms(conv, device)))
 
-    # lag_dot's cross form, the dense update's bilinear term: [B, nyb]
-    # against b [B, nyb]
+    # lag_dot's cross form (the partitioned mode's delta contributions):
+    # [B, nyb] against b [B, nyb]
     other = torch.flip(y64, (-1,)).contiguous()
     got = _lag_dot.lag_dot_cuda(y64, other, L=L)
     check_close(f"{name} lag_dot B={B} (cross)", "lag_dot", got,
@@ -876,6 +974,9 @@ def phase_kernels_lanes(device, name: str, B: int, length=None,
     # prefix_sum, the dense update's pair of rows of every lane: [B, 2, nyb]
     out.append(prefix_sum_entry(device, name,
                                 torch.stack([y64, y64 * y64], dim=-2), B))
+    # dense_sxx, every lane's bilinear term in one launch
+    dys = torch.stack([dense_delta(y64[b], ny, seed=b) for b in range(B)])
+    out.append(dense_sxx_entry(device, name, y64, dys, ny_t, L, B))
 
     # acf_impact, the rounds' float32 impacts of every point
     args = (y64.float(), dval.float(), table.float(), p0.float())
@@ -1057,7 +1158,8 @@ def cpu_reference(name: str, path: str, length=None) -> dict:
     t0 = time.perf_counter()
     ref = cameo.compress(x, cfg, device="cpu")
     return dict(kept=ref.kept.numpy(), n_kept=int(ref.n_kept),
-                iters=int(ref.iters), wall_s=time.perf_counter() - t0)
+                iters=int(ref.iters), deviation=float(ref.deviation),
+                wall_s=time.perf_counter() - t0)
 
 
 def _cpu_worker_init(threads: int) -> None:
@@ -1114,7 +1216,16 @@ def phase_main(device, name: str, path: str = "rounds", length=None,
             else cpu_reference(name, path, length)
         row.update(cr_cpu=n / float(ref["n_kept"]), iters_cpu=ref["iters"],
                    wall_s_cpu=ref["wall_s"],
-                   same_kept=bool(np.array_equal(kept, ref["kept"])))
+                   same_kept=bool(np.array_equal(kept, ref["kept"])),
+                   deviation_bits_equal=dev.hex() == ref["deviation"].hex())
+        if path == "rounds":
+            # the round body's sums all take the CPU path's order (C16)
+            require(row["same_kept"] and row["deviation_bits_equal"]
+                    and row["iters"] == ref["iters"],
+                    f"{what}: the card's run parts from the CPU path's "
+                    f"(kept {row['same_kept']}, iterations {row['iters']} / "
+                    f"{ref['iters']}, deviation {dev!r} / "
+                    f"{ref['deviation']!r})")
         if held:
             require(abs(cr - row["cr_cpu"]) <= 0.05 * row["cr_cpu"],
                     f"{what}: CR {cr} is not within 5% of the CPU path's "
@@ -1830,8 +1941,9 @@ def phase_facade(device, tmp: Path, sizes=None, log=print) -> dict:
          bytes_equal_batch=True)
     counts = read_counts()
     if device.type == "cuda":
+        # every compress path runs here; segment_scan serves the baselines
         for kname in WRAPPERS:
-            require(counts[kname] > 0,
+            require(counts[kname] > 0 or kname == "segment_scan",
                     f"facade: kernel {kname} was never launched")
     return dict(steps=steps, launches=counts)
 
@@ -2064,6 +2176,260 @@ def run_partitioned(device, sizes=None, cpu_rounds: int = PART_CPU_ROUNDS,
                 seconds=time.perf_counter() - t0)
 
 
+# ---------------------------------------------------------------------------
+# the baselines phase (baselines/: the paper's comparison methods)
+# ---------------------------------------------------------------------------
+
+# the parameterized methods' searches (the benchmark's own setting: 8
+# bisection steps), each with whether its parameter is an integer (FFT's
+# kept-coefficient count)
+BASELINE_SEARCH = (("pmc", False), ("swing", False), ("simpiece", False),
+                   ("fft", True))
+BASELINE_ITERS = 8
+# the CPU path's runs of uk_elec the card's are held to: worker processes
+# started after phase 4 (the main paths' CPU pool is done by then), one
+# torch thread each (~25 s a line-simplification rank on one core)
+BASELINE_CPU_WORKERS = 2
+BASELINE_CPU_THREADS = 1
+# the segment_scan holds: the dataset's parameter from the search, and
+# this many times it
+SEGMENT_SCAN_SPREAD = 10.0
+
+
+def _search_fn(method: str):
+    return {"pmc": _bl.pmc_compress, "swing": _bl.swing_compress,
+            "simpiece": _bl.simpiece_compress,
+            "fft": _bl.fft_compress}[method]
+
+
+def _baseline_series(name: str, length=None):
+    cfg = cameo.CameoConfig(eps=EPS, **dataset_cameo_kwargs(name))
+    x = make_dataset(name, seed=0, length=length)
+    return x[:(x.shape[0] // cfg.kappa) * cfg.kappa], cfg
+
+
+def baseline_cpu_rank(name: str, rank: str, length=None) -> dict:
+    """The CPU path's ``compress_baseline`` of ``name`` by ``rank``: kept
+    mask, rounds, deviation and the per-round trace."""
+    x, cfg = _baseline_series(name, length)
+    trace = []
+    t0 = time.perf_counter()
+    res = _bl.line_simpl.compress_baseline(x, cfg, rank, device="cpu",
+                                           trace=trace)
+    return dict(kept=res.kept.numpy(), iters=int(res.iters),
+                deviation=float(res.deviation), trace=trace,
+                wall_s=time.perf_counter() - t0)
+
+
+def baseline_cpu_searches(name: str, length=None) -> dict:
+    """The CPU path's searches of ``name``: each method's parameter,
+    storage and deviation."""
+    x, cfg = _baseline_series(name, length)
+    out = {}
+    for method, isint in BASELINE_SEARCH:
+        _, stored, dev, p = _bl.acf_constrained_search(
+            x, cfg, _search_fn(method), param_is_int=isint,
+            iters=BASELINE_ITERS, device="cpu")
+        out[method] = dict(param=p, stored=stored, deviation=dev)
+    return out
+
+
+def baseline_references(name: str, length=None) -> tuple:
+    """Start the CPU path's runs of ``name`` (every rank, the searches) in
+    ``BASELINE_CPU_WORKERS`` spawned processes; ``(pool, {key: future})``.
+    The caller shuts the pool down."""
+    pool = concurrent.futures.ProcessPoolExecutor(
+        BASELINE_CPU_WORKERS, mp_context=multiprocessing.get_context("spawn"),
+        initializer=_cpu_worker_init, initargs=(BASELINE_CPU_THREADS,))
+    futs = {("search",): pool.submit(baseline_cpu_searches, name, length)}
+    for rank in _bl.LINE_SIMPL_BASELINES:
+        futs[("rank", rank)] = pool.submit(baseline_cpu_rank, name, rank,
+                                           length)
+    return pool, futs
+
+
+def _first_differing_round(a: list, b: list):
+    """The first round whose (accepted, picks, deviation bits) differ
+    between two traces, with both; None where none does."""
+    for i, (ra, rb) in enumerate(zip(a, b)):
+        if ra != rb:
+            return dict(round=i, card=list(ra), cpu=list(rb))
+    return None if len(a) == len(b) else dict(round=min(len(a), len(b)))
+
+
+def segment_scan_entry(device, name: str, x: np.ndarray, mode: str,
+                       errs) -> dict:
+    """segment_scan of ``mode`` at ``name``'s full length against its plain
+    version at tolerance 0 (every output, bit for bit), at each of
+    ``errs``, and the series in float32 at the first (PMC keeps a float32
+    series' type); timed at the first in float64 with CUDA events beside
+    its plain version (one call, a walk on the host); the bound counts the
+    bytes it must move and its float64 operations."""
+    xt = torch.from_numpy(x).to(device)
+    n = x.shape[0]
+    err_max, plain_ms = 0.0, None
+    for xs, err in [(xt, e) for e in errs] + [(xt.float(), errs[0])]:
+        got = _segscan.segment_scan_cuda(xs, err, mode)
+        want, ms = timed_once(
+            lambda: _segscan.segment_scan_plain(xs, err, mode), device)
+        plain_ms = ms if plain_ms is None else plain_ms
+        for g, w in zip(got, want):
+            require(torch.equal(g, w),
+                    f"{name} segment_scan {mode} {xs.dtype} err={err}: the "
+                    f"kernel disagrees with its plain version in "
+                    f"{int((g != w).sum())} of {n} outputs")
+            if g.dtype.is_floating_point:
+                err_max = max(err_max, float((g - w).abs().max()))
+    # PMC: read n values, write n flags; a min, a max, a subtraction and a
+    # compare a point.  Swing: read n values, write n flags and 4 n values;
+    # ~14 operations a point (two divisions)
+    nbytes = 8 * n + n + (32 * n if mode == "swing" else 0)
+    flops = (4 if mode == "pmc" else 14) * n
+    bnd, by = bound_ms(nbytes, flops, FP64_FLOPS)
+    ms = device_ms(lambda: _segscan.segment_scan_cuda(xt, errs[0], mode),
+                   device, reps=3, inner=3)
+    return dict(name="segment_scan", dataset=name,
+                shape=f"{mode} n={n} float64, err {errs[0]:.6g} and "
+                      f"{errs[1]:.6g}; float32 at the first",
+                max_abs_err=err_max, ms=ms, plain_ms=plain_ms,
+                library_ms=None, bound_ms=bnd, bound_by=by)
+
+
+def phase_baselines(device, name: str, length=None, refs=None,
+                    log=print) -> dict:
+    """The baselines of ``name`` on ``device`` at eps = 1e-2: the five
+    line-simplification ranks through ``compress_baseline`` with their
+    guarantee, the four parameterized methods through
+    ``acf_constrained_search`` (8 steps) with a re-measure of the
+    deviation, and the lossless counters equal to their loop forms.  With
+    ``refs`` (the CPU path's runs, :func:`baseline_references`), each rank's
+    kept mask, rounds, deviation bits and every round's (accepted, picks,
+    deviation bits) are held to the CPU's (a failure names the first round
+    that parts), and each search's parameter and storage to the CPU's."""
+    x, cfg = _baseline_series(name, length)
+    n = x.shape[0]
+    ranks, searches = [], []
+    for rank in _bl.LINE_SIMPL_BASELINES:
+        trace = []
+        res, wall, mem = _run_timed(
+            lambda: _bl.line_simpl.compress_baseline(
+                x, cfg, rank, device=device, trace=trace), device)
+        kept = res.kept.cpu().numpy()
+        dev = float(res.deviation)
+        re = check_guarantee(f"{name} {rank}", x, res.xr.cpu().numpy(), kept,
+                             dev, cfg)
+        row = dict(dataset=name, method=rank, n=n, rounds=int(res.iters),
+                   accepted=sum(t[0] for t in trace), cr=n / float(kept.sum()),
+                   deviation=dev, remeasured=re, wall_s=wall,
+                   s_per_round=wall / max(int(res.iters), 1),
+                   max_memory_allocated=mem)
+        if refs:
+            ref = refs[("rank", rank)].result()
+            require(np.array_equal(kept, ref["kept"]),
+                    f"{name} {rank}: the card's kept mask differs from the "
+                    f"CPU path's")
+            require(int(res.iters) == ref["iters"],
+                    f"{name} {rank}: {int(res.iters)} rounds on the card, "
+                    f"{ref['iters']} on the CPU")
+            first = _first_differing_round(trace, ref["trace"])
+            require(first is None and dev.hex() == ref["deviation"].hex(),
+                    f"{name} {rank}: the card's rounds part from the CPU "
+                    f"path's (deviation {dev.hex()} against "
+                    f"{ref['deviation'].hex()}), first at {first}")
+            row.update(same_kept=True, rounds_cpu=ref["iters"],
+                       wall_s_cpu=ref["wall_s"], deviation_bits_equal=True)
+        ranks.append(row)
+        log("baseline " + json.dumps(row))
+    ref_search = refs[("search",)].result() if refs else {}
+    for method, isint in BASELINE_SEARCH:
+        fn, host_s = _search_fn(method), [0.0]
+
+        def timed_fn(xd, p, device):
+            # the method's own seconds (Sim-Piece's: its host loop)
+            t = time.perf_counter()
+            out = fn(xd, p, device=device)
+            host_s[0] += time.perf_counter() - t
+            return out
+        (recon, stored, dev, p), wall, _ = _run_timed(
+            lambda: _bl.acf_constrained_search(
+                x, cfg, timed_fn, param_is_int=isint,
+                iters=BASELINE_ITERS, device=device), device)
+        require(recon.device.type == device.type and recon.shape == (n,),
+                f"{name} {method}: reconstruction {tuple(recon.shape)} on "
+                f"{recon.device}")
+        re = remeasure(x, recon.cpu().numpy(), cfg)
+        require(re <= cfg.eps + 1e-12 and abs(re - dev) <= 1e-9,
+                f"{name} {method}: deviation {dev}, re-measured {re}, "
+                f"eps {cfg.eps}")
+        row = dict(dataset=name, method=method, n=n, param=p, stored=stored,
+                   cr=n / stored, deviation=dev, remeasured=re, wall_s=wall,
+                   method_s=host_s[0])
+        if method in ref_search:
+            ref = ref_search[method]
+            require(p == ref["param"] and stored == ref["stored"],
+                    f"{name} {method}: parameter {p} and storage {stored} on "
+                    f"the card, {ref['param']} and {ref['stored']} on the "
+                    f"CPU")
+            require(dev.hex() == ref["deviation"].hex() or method == "fft",
+                    f"{name} {method}: deviation {dev!r} on the card, "
+                    f"{ref['deviation']!r} on the CPU")
+            # FFT's coefficients come from cuFFT on the card, PocketFFT on
+            # the CPU: its deviation is compared, not held
+            row.update(param_cpu=ref["param"], stored_cpu=ref["stored"],
+                       deviation_bits_equal=dev.hex() ==
+                       ref["deviation"].hex())
+        searches.append(row)
+        log("baseline " + json.dumps(row))
+    lossless = {}
+    for codec, fast, loop in (
+            ("gorilla", _bl.gorilla_bits_per_value,
+             _bl.lossless.gorilla_bits_per_value_loop),
+            ("chimp", _bl.chimp_bits_per_value,
+             _bl.lossless.chimp_bits_per_value_loop)):
+        bits = fast(x)
+        require(bits == loop(x), f"{name} {codec}: the counter and its loop "
+                                 f"form disagree")
+        lossless[codec] = bits
+    log("baseline " + json.dumps(dict(dataset=name, bits_per_value=lossless)))
+    return dict(x=x, ranks=ranks, searches=searches, lossless=lossless)
+
+
+def run_baselines(device, sizes=None, refs=None, log=print) -> dict:
+    """The baselines phase: :func:`phase_baselines` of both datasets (uk_elec
+    held to the CPU path's ``refs``), the counts read around it; then
+    segment_scan held to its plain version on each dataset in both modes
+    at the error bound its search settled on and ``SEGMENT_SCAN_SPREAD``
+    times it (launches made to compare do not count)."""
+    device = torch.device(device)
+    sizes = sizes or {}
+    t0 = time.perf_counter()
+    reset_counts()
+    out = {name: phase_baselines(device, name, sizes.get(name),
+                                 refs if name == DATASETS[0] else None, log)
+           for name in DATASETS}
+    launches = read_counts()
+    if device.type == "cuda":
+        for kname in ("lag_dot", "prefix_sum", "dense_sxx", "segment_scan"):
+            require(launches[kname] > 0,
+                    f"baselines: kernel {kname} was never launched")
+    seconds = time.perf_counter() - t0
+    kernels = []
+    for name, ph in out.items():
+        params = {r["method"]: r["param"] for r in ph["searches"]}
+        for mode in _segscan.MODES:
+            kernels.append(segment_scan_entry(
+                device, name, ph["x"], mode,
+                (params[mode], SEGMENT_SCAN_SPREAD * params[mode])))
+    rows = [r for ph in out.values() for r in ph["ranks"] + ph["searches"]]
+    simpiece_s = {name: next(r["method_s"] for r in ph["searches"]
+                             if r["method"] == "simpiece")
+                  for name, ph in out.items()}
+    return dict(rows=rows, kernels=kernels, launches=launches,
+                lossless={name: ph["lossless"] for name, ph in out.items()},
+                simpiece_host_s=simpiece_s, seconds=seconds,
+                seconds_with_holds=time.perf_counter() - t0)
+
+
 def _scan_state(device, name: str, rounds: int, length=None):
     """A scan run on ``device`` stepped ``rounds`` rounds (one lane): the
     config, the round functions' arguments, p0, the carry and the next
@@ -2261,13 +2627,16 @@ def run_phases(device, *, uk_length=None, aus_length=None,
             pool.shutdown(wait=True, cancel_futures=True)
 
 
-def kernel_rows(report) -> list:
-    """The ``{"kernels": [...]}`` rows: one per kernel, timed at the first
-    dataset's shapes, with every dataset's check and times under
-    ``shapes``; ``max_abs_err`` is the largest over all of them."""
+def kernel_rows(report, names=tuple(WRAPPERS)) -> list:
+    """The ``{"kernels": [...]}`` rows of the kernels ``names`` (every
+    kernel by default): one per kernel, timed at the first dataset's
+    shapes, with every dataset's check and times under ``shapes``;
+    ``max_abs_err`` is the largest over all of them.  Fails where the
+    report holds no entry of one of them."""
     rows = []
-    for name in WRAPPERS:
+    for name in names:
         ks = [k for k in report["kernels"] if k["name"] == name]
+        require(ks, f"kernel {name} has no phase-3 entry")
         first = ks[0]
         rows.append(dict(
             name=name, route="cuda", source=SOURCES[name],
@@ -2319,7 +2688,8 @@ def main() -> int:
     for r in report["runs"]:
         print("path " + json.dumps({k: r.get(k) for k in (
             "dataset", "path", "n", "iters", "iters_cpu", "cr", "cr_cpu",
-            "cr_backoff", "same_kept", "wall_s", "s_per_iter",
+            "cr_backoff", "same_kept", "deviation_bits_equal", "wall_s",
+            "s_per_iter",
             "launches_per_iter", "wall_s_cpu")}))
     for r in report["batches"]:
         keys = (("dataset", "B", "n", "rounds", "iters_min", "cr_mean",
@@ -2335,17 +2705,17 @@ def main() -> int:
             "cr_cpu", "windows_same_kept_as_cpu", "deviation", "store_bytes",
             "wall_s", "points_per_s", "depths", "max_memory_allocated")}))
     print("stream counters " + json.dumps(report["streams"]["counters"]))
-    facade = run_facade(device)
-    seconds["facade"] = facade["seconds"]
-    for kname, c in facade["launches"].items():
-        report["launches"][kname] += c
-    print("facade " + json.dumps(dict(steps=facade["steps"],
-                                      launches=facade["launches"],
-                                      seconds=facade["seconds"])))
-    part = run_partitioned(device)
-    seconds["partitioned"] = part["seconds"]
-    for kname, c in part["launches"].items():
-        report["launches"][kname] += c
+    # the baselines phase's CPU references start now, beside the facade and
+    # partitioned phases (the main paths' CPU pool has finished)
+    bl_pool, bl_refs = baseline_references(DATASETS[0])
+    try:
+        bl = run_more_phases(device, report, seconds, bl_refs)
+    finally:
+        bl_pool.shutdown(wait=True, cancel_futures=True)
+    print("baselines " + json.dumps(dict(
+        launches=bl["launches"], lossless=bl["lossless"],
+        simpiece_host_s=bl["simpiece_host_s"], seconds=bl["seconds"],
+        seconds_with_holds=bl["seconds_with_holds"])))
     print(nvidia_smi())
     t0 = time.perf_counter()
     print("lockstep " + json.dumps(scan_lockstep(device)))
@@ -2357,6 +2727,35 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def run_more_phases(device, report, seconds, bl_refs) -> dict:
+    """The facade, partitioned and baselines phases after ``run_phases``:
+    their launches go into ``report``'s totals, the baselines' segment_scan
+    holds into its kernel entries, their seconds into ``seconds``."""
+    facade = run_facade(device)
+    seconds["facade"] = facade["seconds"]
+    for kname, c in facade["launches"].items():
+        report["launches"][kname] += c
+    print("facade " + json.dumps(dict(steps=facade["steps"],
+                                      launches=facade["launches"],
+                                      seconds=facade["seconds"])))
+    part = run_partitioned(device)
+    seconds["partitioned"] = part["seconds"]
+    for kname, c in part["launches"].items():
+        report["launches"][kname] += c
+    bl = run_baselines(device, refs=bl_refs)
+    seconds["baselines"] = bl["seconds"]
+    seconds["segment_scan_holds"] = bl["seconds_with_holds"] - bl["seconds"]
+    for kname, c in bl["launches"].items():
+        report["launches"][kname] += c
+    report["kernels"] += bl["kernels"]
+    for k in bl["kernels"]:
+        print(f"kernel {k['name']} {k['dataset']} [{k['shape']}] "
+              f"max_abs_err={k['max_abs_err']:.3e} tol 0 ms={k['ms']} "
+              f"plain_ms={k['plain_ms']} library_ms=None "
+              f"bound_ms={k['bound_ms']:.3e} ({k['bound_by']})")
+    return bl
 
 
 if __name__ == "__main__":

@@ -50,25 +50,6 @@ def _dense_moment_deltas(y_old, delta, ny, L, backend):
     return dsx, dsxl, dsx2, dsxl2
 
 
-def _dsxx_roll(y_old, delta, ny, L):
-    """The bilinear ``sxx`` delta as the JAX reference computes it on the
-    CPU (``form="roll"``): for each lag ``l`` the masked terms
-    ``keep * (d_t * z_{(t+l) % nyb} + y_t * d_{(t+l) % nyb})``, ``z = y + d``,
-    summed over the bucket in XLA's row-reduce order (``ref.row_sum_xla``);
-    ``[..., L]``."""
-    nyb = y_old.shape[-1]
-    dev = y_old.device
-    l = torch.arange(1, L + 1, device=dev)[:, None]
-    t = torch.arange(nyb, device=dev)
-    nyc = torch.as_tensor(ny, device=dev)
-    keep = (t <= nyc.reshape(*nyc.shape, 1, 1) - 1 - l).to(y_old.dtype)
-    shift = (t + l) % nyb                                  # [L, nyb]
-    z = y_old + delta
-    terms = keep * (delta.unsqueeze(-2) * z[..., shift]
-                    + y_old.unsqueeze(-2) * delta[..., shift])
-    return _ref.row_sum_xla(terms)
-
-
 def _with_deltas(agg, dtable):
     if isinstance(agg, torch.Tensor):
         return agg + dtable
@@ -81,8 +62,8 @@ def apply_delta_dense(agg, y_old: torch.Tensor, delta: torch.Tensor,
 
     ``y_old`` is the reconstruction before the update.  The four moment
     sums cost O(ny + L) through cumulative sums (``ops.prefix_sum``); the
-    bilinear ``sxx`` term is two lagged products (``ops.lag_dot``) on the
-    card and the JAX reference's CPU form elsewhere (``_dsxx_roll``).
+    bilinear ``sxx`` term is one masked term a (point, lag) summed in the
+    JAX reference's CPU order (``ops.dense_sxx``), on every device.
 
     ``agg`` may be the ``Aggregates`` tuple or the packed ``[5, L]`` table
     (the rounds-mode carry); the update comes back in the same form.
@@ -99,15 +80,10 @@ def apply_delta_dense(agg, y_old: torch.Tensor, delta: torch.Tensor,
                                                   backend)
     # new*new - old*old expanded over lag shifts:
     #   d_t*y_{t+l} + y_t*d_{t+l} + d_t*d_{t+l} = d_t*(y+d)_{t+l} + y_t*d_{t+l}
-    # On the card both products are lag_dot's cross form (zero padding
-    # beyond ny nulls every invalid pair), whose lanes each keep the bits
-    # of their launch alone (a batched cuBLAS product does not).  Elsewhere
-    # the JAX reference's CPU form: one masked term a pair, summed over t.
-    if _ops.resolve_backend(backend, y_old.device) == "cuda":
-        dsxx = (_ops.lag_dot(delta, L, b=y_old + delta, backend=backend)
-                + _ops.lag_dot(y_old, L, b=delta, backend=backend))
-    else:
-        dsxx = _dsxx_roll(y_old, delta, ny, L)
+    # one masked term a pair, summed over t in the JAX reference's CPU order
+    # (its roll form): the dense_sxx kernel on the card, its plain version
+    # elsewhere, the same bits; zero padding beyond ny adds nothing
+    dsxx = _ops.dense_sxx(y_old, delta, ny, L, backend)
     return _with_deltas(agg, torch.stack([dsx, dsxl, dsx2, dsxl2, dsxx],
                                          dim=-2))
 

@@ -123,14 +123,14 @@ def use_library(stem: str, lib: ctypes.CDLL) -> None:
         _BUILDER._libs[stem] = lib
 
 
-def bind(stem: str, symbol: str, n_ptr: int, n_int: int):
+def bind(stem: str, symbol: str, n_ptr: int, n_int: int, n_double: int = 0):
     """The C entry point ``symbol`` of ``lib<stem>.so``, typed as
-    ``n_ptr`` pointers, ``n_int`` ints and a trailing stream, returning
-    the CUDA error code."""
+    ``n_ptr`` pointers, ``n_int`` ints, ``n_double`` doubles and a trailing
+    stream, returning the CUDA error code."""
     fn = getattr(_BUILDER.library(stem), symbol)
     if fn.argtypes is None:
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                       + [ctypes.c_void_p])
+                       + [ctypes.c_double] * n_double + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 

@@ -6,8 +6,8 @@ products, Algorithm-2 single-delta impacts (Eq. 8), exact windowed impacts
 Backends, chosen per call and plumbed from ``CameoConfig.backend``:
 
 * ``"cuda"``      — the hand-written kernels (``lag_dot``, ``prefix_sum``,
-  ``acf_impact``, ``acf_window_impact``, ``fused_round.window_rows_cuda``
-  and ``fused_round.prefix_devs_cuda``).  Asking for it with CPU tensors
+  ``dense_sxx``, ``acf_impact``, ``acf_window_impact``,
+  ``fused_round.window_rows_cuda`` and ``fused_round.prefix_devs_cuda``).  Asking for it with CPU tensors
   raises.
 * ``"reference"`` — the plain PyTorch forms, on whatever device the
   tensors lie.
@@ -32,6 +32,7 @@ from repro_torch.core import measures as _measures
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.acf_impact import acf_impact_cuda
 from repro_torch.kernels.acf_window_impact import acf_window_impact_cuda
+from repro_torch.kernels.dense_sxx import dense_sxx_cuda, dense_sxx_plain
 from repro_torch.kernels.lag_dot import lag_dot_cuda, lag_dot_plain
 from repro_torch.kernels.prefix_sum import prefix_sum_cuda, prefix_sum_plain
 
@@ -96,6 +97,16 @@ def lag_dot(a: torch.Tensor, L: int, *, b=None, halo=None,
     if resolve_backend(backend, a.device) == "cuda":
         return lag_dot_cuda(a, b, halo, L=L)
     return lag_dot_plain(a, b, halo, L=L)
+
+
+def dense_sxx(y_old: torch.Tensor, delta: torch.Tensor, ny, L: int,
+              backend: str = "auto") -> torch.Tensor:
+    """The dense update's bilinear term ``[..., L]`` in the reference's CPU
+    order (``kernels/dense_sxx.py``; the kernel on the card, the plain
+    version on the CPU: the same bits)."""
+    if resolve_backend(backend, y_old.device) == "cuda":
+        return dense_sxx_cuda(y_old, delta, ny, L)
+    return dense_sxx_plain(y_old, delta, ny, L)
 
 
 def prefix_sum(x: torch.Tensor, backend: str = "auto") -> torch.Tensor:

@@ -299,31 +299,30 @@ def test_unported_surfaces_raise(tmp_path):
 
 
 def test_port_and_chip_smoke_import_no_jax():
+    """Every module of the port (walked with ``pkgutil``, so later modules
+    are covered too) and chip_smoke.py import no JAX and nothing of the JAX
+    package."""
     code = (
-        "import sys\n"
+        "import importlib, pkgutil, sys\n"
         f"sys.path.insert(0, {ROOT!r})\n"
-        "import repro_torch, repro_torch.convert\n"
-        "from repro_torch.core import cameo, acf, aggregates, measures\n"
-        "from repro_torch.kernels import ops, ref, fused_round, lag_dot, "
-        "acf_impact, _build\n"
-        "from repro_torch.data import synthetic\n"
-        "import repro_torch.obs, repro_torch.obs.registry, "
-        "repro_torch.obs.trace\n"
-        "from repro_torch.core import streaming\n"
-        "from repro_torch.store import (_scan, blocks, codec, maintenance, "
-        "query, store, wal)\n"
-        "from repro_torch.store import CameoStore, StreamSession\n"
+        "import repro_torch\n"
+        "mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "
+        "'repro_torch.')]\n"
+        "for name in mods:\n"
+        "    importlib.import_module(name)\n"
+        "assert 'repro_torch.baselines.line_simpl' in mods, mods\n"
         "import chip_smoke\n"
         "from chip_smoke import run_phases, remeasure\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'jaxlib')) or m == 'repro' or m.startswith('repro.')]\n"
         "assert not bad, bad\n"
-        "print('ok')\n")
+        "print(len(mods), 'ok')\n")
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "ok"
+    n, ok = out.stdout.split()
+    assert ok == "ok" and int(n) > 40, out.stdout
 
 
 def test_config_and_carry_convert():
@@ -391,14 +390,15 @@ def test_chip_smoke_phases_rehearsal():
     assert [(k["dataset"], k["name"]) for k in report["kernels"]] == [
         (d, k) for d in ("uk_elec", "aus_elec")
         for k in ("lag_dot",) + ("prefix_sum",) * (6 if d == "uk_elec" else 2)
-        + ("acf_impact", "window_rows", "window_rows")
+        + ("dense_sxx", "acf_impact", "window_rows", "window_rows")
         + ("acf_window_impact",) * 3
         + ("acf_impact", "prefix_devs", "prefix_devs")] + [
         (d, k) for d in ("uk_elec", "aus_elec")
-        for k in ("lag_dot", "prefix_sum", "acf_impact", "window_rows")
-        + (("prefix_devs",) if d == "uk_elec" else ())]
+        for k in ("lag_dot", "prefix_sum", "dense_sxx", "acf_impact",
+                  "window_rows") + (("prefix_devs",) if d == "uk_elec"
+                                    else ())]
     assert [k["lanes"] for k in report["kernels"] if "lanes" in k] == \
-        [3] * 4 + [2] * 5
+        [3] * 5 + [2] * 6
     assert all(k["max_abs_err"] == 0.0 for k in report["kernels"])
     edge = [k for k in report["kernels"] if "boundary-heavy" in k["shape"]]
     assert [k["name"] for k in edge] == ["window_rows",
@@ -413,9 +413,13 @@ def test_chip_smoke_phases_rehearsal():
                                                       "real round 3"] * 2
     assert all(0 < k["ok"] <= k["K"] and k["interior"] <= k["ok"]
                for k in pd)
-    rows = chip_smoke.kernel_rows(report)
-    assert [r["name"] for r in rows] == list(chip_smoke.WRAPPERS)
-    assert [len(r["shapes"]) for r in rows] == [4, 6, 6, 6, 5, 10]
+    # segment_scan's holds come with the baselines phase, after run_phases
+    names = [n for n in chip_smoke.WRAPPERS if n != "segment_scan"]
+    rows = chip_smoke.kernel_rows(report, names)
+    assert [r["name"] for r in rows] == names
+    with pytest.raises(chip_smoke.SmokeFailure, match="segment_scan"):
+        chip_smoke.kernel_rows(report)
+    assert [len(r["shapes"]) for r in rows] == [4, 6, 6, 6, 5, 10, 4]
     ps = [k for k in report["kernels"] if k["name"] == "prefix_sum"]
     assert [k["shape"].split(" x n=")[1] for k in ps[2:6]] == [
         f"{n} float64" for n in chip_smoke.PREFIX_SUM_LENGTHS]
@@ -541,9 +545,9 @@ def cuda():
 
 @pytest.mark.gpu
 def test_gpu_main_path(cuda):
-    from repro_torch.kernels import acf_impact, fused_round, lag_dot
+    from repro_torch.kernels import acf_impact, dense_sxx, fused_round, lag_dot
     wrappers = (lag_dot.lag_dot_cuda, acf_impact.acf_impact_cuda,
-                fused_round.window_rows_cuda)
+                fused_round.window_rows_cuda, dense_sxx.dense_sxx_cuda)
     x = make_dataset("uk_elec", seed=0, length=4096)
     cfg = tc.CameoConfig(eps=1e-2, lags=48)
     before = [w.launches for w in wrappers]

@@ -459,13 +459,14 @@ def test_x_window_to_y(kappa):
 
 
 def test_counters_stay_zero_on_cpu():
-    from repro_torch.kernels import fused_round, lag_dot, acf_impact
+    from repro_torch.kernels import (acf_impact, dense_sxx, fused_round,
+                                     lag_dot)
     wrappers = (lag_dot.lag_dot_cuda, acf_impact.acf_impact_cuda,
-                fused_round.window_rows_cuda)
+                fused_round.window_rows_cuda, dense_sxx.dense_sxx_cuda)
     before = [w.launches for w in wrappers]
     t_cameo.compress(_series(256, np.float64)[0],
                      t_cameo.CameoConfig(eps=0.05, lags=8), device="cpu")
-    assert [w.launches for w in wrappers] == before == [0, 0, 0]
+    assert [w.launches for w in wrappers] == before == [0, 0, 0, 0]
 
 
 def test_import_builds_nothing():

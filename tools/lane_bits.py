@@ -8,8 +8,8 @@ The round body's float64 sums: the prefix sums of the dense Eq. 10/11
 update and of the Eq. 7 moments at init, the update's bilinear term (as
 PyTorch computes them, ``torch.cumsum`` over the last axis and a batched
 matrix product against a shift view, and as the port does, through the
-``prefix_sum`` kernel, in XLA's cumsum order, and ``lag_dot``'s cross
-form), the whole update, the kappa-mean of ``aggregate_series`` and the
+``prefix_sum`` kernel, in XLA's cumsum order, ``lag_dot``'s cross form
+and the ``dense_sxx`` kernel, which the update runs), the whole update, the kappa-mean of ``aggregate_series`` and the
 kappa-sum of the x-to-y delta,
 the one-hot segment sum of ``ops.x_window_to_y`` and the measure's mean
 over the lags.  Each is computed on ``--lanes`` lanes of uk_elec- or
@@ -75,6 +75,10 @@ def main() -> int:
         "lag_dot kernel, cross form [B, 18432] L 48 (its products)": (
             lambda b: ops.lag_dot(d[b], L, b=y[b]),
             lambda: ops.lag_dot(d, L, b=y)),
+        "dense_sxx kernel [B, 18432] L 48 (the update's bilinear term, "
+        "the reference's CPU order)": (
+            lambda b: ops.dense_sxx(y[b], d[b], ny[b], L),
+            lambda: ops.dense_sxx(y, d, ny, L)),
         "apply_delta_dense": (
             lambda b: apply_delta_dense(tbl[b], y[b], d[b], ny=ny[b]),
             lambda: apply_delta_dense(tbl, y, d, ny=ny)),
