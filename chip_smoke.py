@@ -33,7 +33,8 @@ Phases, each of which fails the run (non-zero exit) on a wrong result:
    version on the CPU (XLA's cumsum order, jnp.cumsum's bits) and timed
    beside torch.cumsum on the card; dense_sxx (the dense update's bilinear
    term, the reference's CPU order) held exactly to its plain version on a
-   round's delta; and an empty kernel, built and bound as
+   round's delta, also at min_temp's 365 lags; and an empty kernel, built
+   and bound as
    the others, timed as the launch floor.  Then the kernels of the rounds
    path with a lane axis, one launch for a batch (uk_elec B = 16, aus_elec
    B = 4; lag_dot's self and cross forms, prefix_sum (the lanes' pairs of
@@ -592,6 +593,14 @@ def phase_kernels(device, name: str, length=None) -> list:
             for c in prefix_cases(device, name, length)]
     for r in out:
         r["dataset"] = name
+    if name == DATASETS[0]:
+        # dense_sxx past 32 lags: min_temp's L = 365 on its bucket, one
+        # series
+        c365, _, _, n365, y365, *_ = kernel_inputs(device, "min_temp",
+                                                   length)
+        out.append(dict(dense_sxx_entry(device, "min_temp", y365,
+                                        dense_delta(y365, n365), n365,
+                                        c365.lags), dataset="min_temp"))
     return out
 
 

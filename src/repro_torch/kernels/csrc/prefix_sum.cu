@@ -53,6 +53,7 @@
 
 #include <algorithm>
 
+#include "cluster.cuh"
 #include "rn.cuh"
 
 namespace cg = cooperative_groups;
@@ -75,18 +76,6 @@ __host__ __device__ __forceinline__ int cdiv(int a, int b) {
   return (a + b - 1) / b;
 }
 
-template <typename T>
-__device__ __forceinline__ void cp_async(T* smem, const T* gmem) {
-  static_assert(sizeof(T) == 4 || sizeof(T) == 8, "4 or 8 bytes");
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(dst),
-               "l"(gmem), "n"(sizeof(T)));
-}
-
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
 // Where value i * THREADS + threadIdx.x of a tile sits in its slot, less
 // i * 16 * STRIDE: group i * 16 + threadIdx.x / 16, value threadIdx.x % 16.
 __device__ __forceinline__ int spread_at() {
@@ -104,7 +93,7 @@ __device__ __forceinline__ void load_tile(const T* __restrict__ x, T* s,
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
     if (i * THREADS < lim) {
-      cp_async(s + i * 16 * STRIDE, x + i * THREADS);
+      cl::cp_async(s + i * 16 * STRIDE, x + i * THREADS);
     } else {
       s[i * 16 * STRIDE] = T(0);
     }
@@ -252,70 +241,6 @@ __device__ void block_scan(T* a, int m, T* s1, T* s2) {
   scan_down(a, m, s1);
 }
 
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
-}
-
-// The exchange's mbarrier: one arrival (this block's own, made here with
-// the bytes the cluster will store into this block) and then those bytes.
-__device__ __forceinline__ void bar_init(unsigned long long* bar,
-                                         unsigned bytes) {
-  const unsigned a = smem_addr(bar);
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(a)
-               : "memory");
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               ::"r"(a), "r"(bytes) : "memory");
-  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-}
-
-// v into the shared-memory word at `dst` of block `rank`, counted on that
-// block's mbarrier: an asynchronous store, no fence.
-template <typename T>
-__device__ __forceinline__ void push(T* dst, T v, unsigned long long* bar,
-                                     int rank) {
-  unsigned ra, rb;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(ra) : "r"(smem_addr(dst)), "r"(rank));
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
-               : "=r"(rb) : "r"(smem_addr(bar)), "r"(rank));
-  if (sizeof(T) == 8) {
-    asm volatile(
-        "st.async.shared::cluster.mbarrier::complete_tx::bytes.b64 [%0], "
-        "%1, [%2];\n" ::"r"(ra), "l"(__double_as_longlong(v)), "r"(rb)
-        : "memory");
-  } else {
-    asm volatile(
-        "st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 [%0], "
-        "%1, [%2];\n" ::"r"(ra), "r"(__float_as_uint(v)), "r"(rb)
-        : "memory");
-  }
-}
-
-// Waits for the exchange's bytes; a fault (a trap) rather than a hang if
-// they never come.
-__device__ __forceinline__ void bar_wait(unsigned long long* bar) {
-  const unsigned a = smem_addr(bar);
-  const long long t0 = clock64();
-  unsigned done = 0;
-  while (true) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], "
-        "%2;\n selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(a), "r"(0u) : "memory");
-    if (done) break;
-    if (clock64() - t0 > (1ll << 32)) __trap();
-  }
-}
-
 // Grid (C, B), cluster (C, 1, 1): grid row b is row b of x.  Shared memory:
 // the exchange's mbarrier, `slots` tile slots, the published values (tile
 // total, level-2 partial 14, level-1 partial 255) and the carries of the
@@ -347,8 +272,8 @@ prefix_sum_kernel(const T* __restrict__ x, T* __restrict__ out, int n,
   x += row * n;
   out += row * n;
   if (threadIdx.x == 0)
-    bar_init(bar, static_cast<unsigned>(4 * ntiles * sizeof(T)));
-  cluster_arrive_relaxed();
+    cl::bar_init(bar, static_cast<unsigned>(4 * ntiles * sizeof(T)));
+  cl::cluster_arrive_relaxed();
 
   // pass 1: every round's upsweep; the last round's partials stay in v,
   // the last `slots` rounds in their slots (round k in slot k % slots)
@@ -358,7 +283,7 @@ prefix_sum_kernel(const T* __restrict__ x, T* __restrict__ out, int n,
     load_tile(x, slot + k * SLOT, r + C * k, n);
   for (int k = 0; k < rounds; ++k) {
     T* s = slot + (k % slots) * SLOT;
-    cp_wait();
+    cl::cp_wait();
     __syncthreads();
     upsweep(s, v, k + 1 < rounds);
     if (threadIdx.x == 0) {
@@ -372,15 +297,15 @@ prefix_sum_kernel(const T* __restrict__ x, T* __restrict__ out, int n,
 
   // the exchange: every block gets each tile's three published values,
   // once every block's mbarrier is set up
-  cluster_wait();
+  cl::cluster_wait();
   for (int i = threadIdx.x; i < C * rounds; i += THREADS) {
     const int q = i % C, k = i / C, t = r + C * k;
-    push(tt + t, pub[3 * k], bar, q);
-    push(t3 + t, pub[3 * k], bar, q);
-    push(t2 + t, pub[3 * k + 1], bar, q);
-    push(t1 + t, pub[3 * k + 2], bar, q);
+    cl::push(tt + t, pub[3 * k], bar, q);
+    cl::push(t3 + t, pub[3 * k], bar, q);
+    cl::push(t2 + t, pub[3 * k + 1], bar, q);
+    cl::push(t1 + t, pub[3 * k + 2], bar, q);
   }
-  bar_wait(bar);
+  cl::bar_wait(bar);
 
   // levels 3 and up: every block scans all tile totals itself
   block_scan(tt, ntiles, s1, s2);
@@ -413,7 +338,7 @@ prefix_sum_kernel(const T* __restrict__ x, T* __restrict__ out, int n,
       s = slot;
       __syncthreads();
       load_tile(x, s, t, n);
-      cp_wait();
+      cl::cp_wait();
       __syncthreads();
       upsweep(s, v, false);
     } else if (j > 0) {

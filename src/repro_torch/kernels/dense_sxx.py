@@ -11,8 +11,11 @@ from +0, the block sums reduced by the same rule).  A masked term is a
 signed zero, which leaves a sum begun at +0 as it is.
 
 ``dense_sxx_cuda`` launches the hand-written kernel of
-``csrc/dense_sxx.cu`` for card tensors (one launch for every lane and lag)
-and computes the plain version, :func:`dense_sxx_plain`, for CPU tensors.
+``csrc/dense_sxx.cu`` for card tensors (one launch for every lane and lag:
+a block stages one lane's tile of the row in shared memory for a group of
+lags, a warp's lanes are lags, and a thread-block cluster reduces the
+tiles' sums) and computes the plain version, :func:`dense_sxx_plain`, for
+CPU tensors.
 Both give the reference's bits, so the dense update, and with it the
 rounds and the line-simplification baselines, give the same bits on the
 card and the CPU, and a lane of a batch the bits of its series alone.
@@ -25,9 +28,11 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 
 _SYMBOL = {torch.float64: "dense_sxx_f64", torch.float32: "dense_sxx_f32"}
-# the kernel keeps one row's sums from the second level up in shared
-# memory: 2,048 of them, rows of up to 2,048 x 1,024 values
+# rows of up to 2,048 x 1,024 values: a cluster of at most 8 tiles, each
+# whole third-level blocks, sums them in shared memory; a tile's staged
+# segments hold the largest lag
 _MAX_N = 2048 * 1024
+_MAX_L = 4096
 _MAX_LANES = 65535
 
 
@@ -68,9 +73,10 @@ def dense_sxx_cuda(y_old: torch.Tensor, delta: torch.Tensor, ny,
                          f"{y_old.device}")
     nyb = y_old.shape[-1]
     B = y_old.shape[0] if y_old.dim() == 2 else 1
-    if not 1 <= nyb <= _MAX_N or not 1 <= B <= _MAX_LANES or L < 1:
+    if (not 1 <= nyb <= _MAX_N or not 1 <= B <= _MAX_LANES
+            or not 1 <= L <= _MAX_L):
         raise ValueError(f"dense_sxx takes 1 <= nyb <= {_MAX_N}, at most "
-                         f"{_MAX_LANES} lanes and L >= 1, got "
+                         f"{_MAX_LANES} lanes and 1 <= L <= {_MAX_L}, got "
                          f"{tuple(y_old.shape)}, L={L}")
     if isinstance(ny, torch.Tensor):
         nys = ny.to(y_old.device, torch.int32).reshape(-1).expand(B)

@@ -19,8 +19,9 @@ association (``(x + err - x0) / dt``, ``x0 + 0.5 (u + l) (t - 1 - t0)``),
 so the outputs equal the reference's scan compiled op by op bit for bit.
 
 ``segment_scan_cuda`` launches the hand-written kernel of
-``csrc/segment_scan.cu`` for card tensors (one thread walks the series;
-the recurrence is serial) and computes the plain version,
+``csrc/segment_scan.cu`` for card tensors (a warp settles a segment a
+step: 32 points at once, the state closed by a prefix min and max across
+the warp, the break found by a ballot) and computes the plain version,
 :func:`segment_scan_plain`, for CPU tensors.  The plain version is the
 same walk in Python, one step a point, with every operation in the
 series' own type: the step is a dozen scalar operations, which a loop of
@@ -36,8 +37,8 @@ from repro_torch.kernels import _build
 
 MODES = ("pmc", "swing")
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
-# one series a launch; the walk's index is an int
-_MAX_N = 2 ** 31 - 1
+# one series a launch; a step's last point index is an int
+_MAX_N = 2 ** 31 - 64
 
 
 def _scalar_type(dtype: torch.dtype):

@@ -16,13 +16,18 @@ from repro_torch.core import cameo as tc
 from repro_torch.data.synthetic import dataset_cameo_kwargs, make_dataset
 from repro_torch.kernels import dense_sxx as ds
 from repro_torch.kernels.lag_dot import lag_dot_plain
-from repro_torch.kernels.ref import xla_row_blocks
 
 # (nyb, ny, L): one block, a short row, a row padded at both ends, a
-# second level of one block, three levels, the datasets' rounds buckets
+# second level of one block, three levels, the datasets' rounds buckets;
+# then past 32 lags (33, 64, min_temp's 365 on 4,096 and on its bucket),
+# and rows whose second-level blocks cross the cluster's 8 tiles (8, 9,
+# 17) or 32 (the tiles then own third-level blocks)
 SHAPES = ((1, 1, 3), (17, 17, 4), (32, 30, 5), (33, 33, 7), (100, 90, 7),
           (1024, 1024, 12), (1025, 1000, 12), (5120, 4806, 7),
-          (18432, 17520, 48), (40000, 39000, 3))
+          (18432, 17520, 48), (40000, 39000, 3),
+          (2048, 2000, 33), (4096, 4000, 64), (4096, 3650, 365),
+          (8192, 8000, 12), (8200, 8200, 9), (16500, 16400, 20),
+          (32900, 32800, 5), (3840, 3650, 365))
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -53,51 +58,218 @@ def _inputs(nyb, ny, seed=0):
     return y, d
 
 
-def _starts(k):
-    sizes = xla_row_blocks(k)
-    return [sum(sizes[:b]) for b in range(len(sizes))], sizes
+# csrc/dense_sxx.cu's constants
+K_WARPS, K_U, K_MAX_CLUSTER, K_MAX_CHUNK = 8, 2, 8, 4
+K_MIN_BLOCKS, K_MIN_LAGS, K_SMEM_MAX = 512, 4, 227 * 1024
 
 
-def _kernel_model(y, d, ny, L):
-    """``csrc/dense_sxx.cu``'s walk, one (lane, lag) at a time: a lane of a
-    warp chains a first-level block's kept terms from +0, lane 0 chains the
-    warp's block sums into a second-level sum, and the levels above are
-    reduced block by block to one value."""
-    nyb = len(y)
-    st1, sz1 = _starts(nyb)
-    st2, sz2 = _starts(len(sz1))
-    out = []
-    for lag in range(1, L + 1):
-        head = ny - 1 - lag
-        level = []
-        for j in range(len(sz2)):
-            acc = 0.0
-            for b in range(st2[j], st2[j] + sz2[j]):
-                s = 0.0
-                for t in range(st1[b], min(st1[b] + sz1[b], head + 1)):
-                    ds_ = d[t + lag]
-                    s = s + (d[t] * (y[t + lag] + ds_) + y[t] * ds_)
-                acc = acc + s
-            level.append(acc)
-        while len(level) > 1:
-            st, sz = _starts(len(level))
-            nxt = []
-            for b in range(len(sz)):
-                acc = 0.0
-                for v in level[st[b]:st[b] + sz[b]]:
-                    acc = acc + v
-                nxt.append(acc)
-            level = nxt
-        out.append(level[0])
-    return np.array(out)
+def _cdiv(a, b):
+    return -(-a // b)
 
 
-@pytest.mark.parametrize("nyb,ny,L", [s for s in SHAPES if s[0] <= 5120])
+def _n_blocks(k):
+    return 1 if k <= 32 else _cdiv(k, 32)
+
+
+def _lead(k):
+    return 0 if k <= 32 else (-k % 32) // 2
+
+
+def _blk(k, b):
+    """Block b of a level of k values: [first, end)."""
+    return max(32 * b - _lead(k), 0), min(32 * b + 32 - _lead(k), k)
+
+
+def _plan(nyb, L, B, itemsize):
+    """``make_plan`` of csrc/dense_sxx.cu: the tiles (a cluster of C), the
+    units they own, the lag group G and its packs P, the chunk and the
+    segment slots."""
+    n1 = _n_blocks(nyb)
+    n2 = _n_blocks(n1)
+    unit3 = n2 > 32
+    nu = _n_blocks(n2) if unit3 else n2
+    upt = _cdiv(nu, K_MAX_CLUSTER)
+    p = dict(n1=n1, n2=n2, unit3=unit3, nu=nu, upt=upt, C=_cdiv(nu, upt),
+             s2cap=32 * upt if unit3 else upt)
+    found, g = None, min(L, 32)
+    while True:
+        P, fit = 32 // g, None
+        for kc in range(min(p["s2cap"], K_MAX_CHUNK), 0, -1):
+            segcap = 32 * _cdiv(32 * _cdiv(32 * kc, P) + L, 32) + 32
+            smem = 16 + itemsize * (2 * P * segcap
+                                    + (32 * kc + p["s2cap"] + nu) * g)
+            if smem <= K_SMEM_MAX:
+                fit = dict(p, G=g, P=P, kc=kc, segcap=segcap)
+                break
+        if fit:
+            found = fit
+            if B * _cdiv(L, g) * p["C"] >= K_MIN_BLOCKS:
+                break
+        nxt = max(K_MIN_LAGS, _cdiv(g, 2))
+        if g <= K_MIN_LAGS or (32 // nxt) * L > 1024 * min(p["s2cap"],
+                                                          K_MAX_CHUNK):
+            break
+        g = nxt
+    return found
+
+
+def _slot(q, segcap, G, itemsize):
+    """``slot`` of csrc/dense_sxx.cu: where segment q's values begin."""
+    return q * (segcap + G) + (q * G // 16 if itemsize == 8 else 0)
+
+
+def _row_block(n, b):
+    """rn::row_block."""
+    if n <= 32:
+        return n
+    pad = -n % 32
+    lo, nw = pad // 2, (n + pad) // 32
+    return 32 - lo if b == 0 else 32 - (pad - lo) if b == nw - 1 else 32
+
+
+def _chain(vals, zero):
+    acc = zero
+    for v in vals:
+        acc = acc + v
+    return acc
+
+
+def _rn_row_sum(vals, zero):
+    """rn::row_sum<T, false> over ``vals`` (one chain up to 32; past that
+    the block walk of rn::row_sum_blocks)."""
+    n = len(vals)
+    if n <= 32:
+        return _chain(vals, zero)
+    n1, total, b0, b1, i = _cdiv(n, 32), zero, 0, 0, 0
+    while b0 < n1:
+        s1, end = zero, b0 + _row_block(n1, b1)
+        while b0 < end:
+            m = _row_block(n, b0)
+            s1 = s1 + _chain(vals[i:i + m], zero)
+            i, b0 = i + m, b0 + 1
+        total, b1 = total + s1, b1 + 1
+    return total
+
+
+def _kernel_model(y, d, ny, L, B=1):
+    """``csrc/dense_sxx.cu`` for one lane of a launch of ``B`` lanes, block
+    by block as the kernel schedules it: each tile's chunks staged into
+    the packs' segment slots (unstaged slots NaN, so a read off the staged
+    values shows), the first-level chains of every (pack, block, lag) lane
+    read at the kernel's slot positions, the second-level chains, the
+    tile's unit sums into block 0's ``top``, and block 0's rn::row_sum."""
+    y, d = np.asarray(y), np.asarray(d)
+    dt, nyb = y.dtype, len(y)
+    zero = dt.type(0)
+    p = _plan(nyb, L, B, dt.itemsize)
+    G, P, segcap, kc = p["G"], p["P"], p["segcap"], p["kc"]
+    n1, n2, lo1 = p["n1"], p["n2"], _lead(nyb)
+    out = np.empty(L, dt)
+    pk = np.arange(P)[:, None, None]
+    jl = np.arange(G)[None, None, :]
+    for grp in range(_cdiv(L, G)):
+        l0 = grp * G
+        nl = min(G, L - l0)
+        hal = l0 + nl
+        top = np.full((p["nu"], G), np.nan, dt)
+        for r in range(p["C"]):
+            u0 = r * p["upt"]
+            u1 = min(u0 + p["upt"], p["nu"])
+            j0, j1 = ((_blk(n2, u0)[0], _blk(n2, u1 - 1)[1]) if p["unit3"]
+                      else (u0, u1))
+            s2 = np.full((p["s2cap"], G), np.nan, dt)
+            for c0 in range(j0, j1, kc):
+                c1 = min(c0 + kc, j1)
+                bs, be = _blk(n1, c0)[0], _blk(n1, c1 - 1)[1]
+                sp = _cdiv(be - bs, P)
+                ys = np.full(P * segcap, np.nan, dt)
+                ds_ = np.full(P * segcap, np.nan, dt)
+                for q in range(P):
+                    pb0, pb1 = bs + q * sp, min(bs + q * sp + sp, be)
+                    if pb0 >= pb1:
+                        break
+                    t = 32 * pb0 - lo1 + np.arange(32 * (pb1 - pb0) + hal)
+                    inside = (t >= 0) & (t < nyb)
+                    tc = np.clip(t, 0, nyb - 1)
+                    base = _slot(q, segcap, G, dt.itemsize)
+                    ys[base:base + len(t)] = np.where(inside, y[tc], zero)
+                    ds_[base:base + len(t)] = np.where(inside, d[tc], zero)
+                # lanes (pack, lag) x the pack's blocks m, each a chain
+                m = np.arange(sp)[None, :, None]
+                pb0 = bs + pk * sp
+                pnb = np.clip(be - pb0, 0, sp)
+                lag = l0 + jl + 1
+                live = (jl < nl) & (m < pnb)
+                s = np.zeros((P, sp, G), dt)
+                for k in range(32):
+                    i = _slot(pk, segcap, G, dt.itemsize) + 32 * m + k
+                    t = 32 * (pb0 + m) + k - lo1
+                    yl, dl = ys[i + lag], ds_[i + lag]
+                    term = ds_[i] * (yl + dl) + ys[i] * dl
+                    keep = live & (t >= 0) & (t <= ny - 1 - lag)
+                    s = np.where(keep, s + term, s)
+                s1 = np.full((32 * kc, G), np.nan, dt)
+                for q, mm, jj in zip(*np.nonzero(np.broadcast_to(
+                        live, s.shape))):
+                    s1[q * sp + mm, jj] = s[q, mm, jj]
+                for c in range(c0, c1):
+                    a, e = _blk(n1, c)
+                    for jj in range(nl):
+                        s2[c - j0, jj] = _chain(s1[a - bs:e - bs, jj], zero)
+            for uu in range(u0, u1):
+                for jj in range(nl):
+                    if p["unit3"]:
+                        a, e = _blk(n2, uu)
+                        top[uu, jj] = _chain(s2[a - j0:e - j0, jj], zero)
+                    else:
+                        top[uu, jj] = s2[uu - j0, jj]
+        for jj in range(nl):
+            out[l0 + jj] = _rn_row_sum(list(top[:, jj]), zero)
+    return out
+
+
+@pytest.mark.parametrize("nyb,ny,L", SHAPES)
 def test_kernel_walk_equals_plain(nyb, ny, L):
+    """The kernel's schedule gives the plain version's bits, for a launch
+    of one lane (the smallest lag groups, packed blocks) and of 16."""
     y, d = _inputs(nyb, ny)
     want = ds.dense_sxx_cuda(torch.from_numpy(y), torch.from_numpy(d), ny, L)
-    got = _kernel_model(y.tolist(), d.tolist(), ny, L)
-    assert np.array_equal(got.view(np.uint64), want.numpy().view(np.uint64))
+    for B in (1, 16):
+        got = _kernel_model(y, d, ny, L, B)
+        assert np.array_equal(got.view(np.uint64),
+                              want.numpy().view(np.uint64)), B
+
+
+def test_kernel_walk_equals_plain_float32():
+    y, d = (v.astype(np.float32) for v in _inputs(5120, 4806))
+    want = ds.dense_sxx_plain(torch.from_numpy(y), torch.from_numpy(d),
+                              4806, 7)
+    got = _kernel_model(y, d, 4806, 7)
+    assert got.dtype == np.float32
+    assert np.array_equal(got.view(np.uint32), want.numpy().view(np.uint32))
+
+
+@pytest.mark.parametrize("nyb,L,B,plan", [
+    # one uk_elec series: 6 tiles of 3 second-level blocks, 4 lags a
+    # block in 8 packs; 16 lanes: 8 lags in 4 packs
+    (18432, 48, 1, dict(C=6, upt=3, G=4, P=8, kc=3, unit3=False)),
+    (18432, 48, 16, dict(C=6, upt=3, G=8, P=4, kc=3, unit3=False)),
+    # aus_elec: 5 tiles, L = 7 in groups of 4
+    (5120, 7, 1, dict(C=5, upt=1, G=4, P=8, kc=1)),
+    # 365 lags: two packs, their halos no larger than the chunk; a third
+    # level of two blocks (the tiles own third-level blocks)
+    (4096, 365, 1, dict(C=4, G=16, P=2, kc=1)),
+    (40000, 3, 1, dict(C=2, upt=1, unit3=True, nu=2, G=3, P=10, kc=4)),
+    (1, 3, 1, dict(C=1, nu=1, G=3)),
+    # the longest row at the largest L fits shared memory
+    (2048 * 1024, 4096, 1, dict(C=8, unit3=True, nu=64)),
+])
+def test_kernel_plan(nyb, L, B, plan):
+    """The schedule the model (and the kernel) takes at the datasets'
+    shapes and the limits."""
+    got = _plan(nyb, L, B, 8)
+    assert got is not None
+    assert {k: got[k] for k in plan} == plan
 
 
 def test_lanes_equal_one_lane():

@@ -86,6 +86,190 @@ def test_plain_scans(err):
     assert ss.segment_scan_cuda.launches == before
 
 
+def _prefix(v, less):
+    """``prefix`` of csrc/segment_scan.cu: the warp's inclusive scan by
+    ``__shfl_up_sync`` steps 1, 2, 4, 8, 16, a lane keeping the earlier
+    operand unless its own is strictly smaller (``less``) or larger."""
+    v = list(v)
+    s = 1
+    while s < 32:
+        nv = list(v)
+        for lane in range(s, 32):
+            o = v[lane - s]
+            if not (v[lane] < o if less else v[lane] > o):
+                nv[lane] = o
+        v, s = nv, 2 * s
+    return v
+
+
+def _pmc_step(xw, nvalid, lo, hi, err2):
+    """A PMC step of csrc/segment_scan.cu's pmc_kernel: the step's fold up
+    to each point (the warp's prefix) and each point's own fold to the
+    step's end with its first break (prepared by the other warps); the
+    carried state joined to the prefix breaks the carried segment at the
+    first lane whose range exceeds 2 err, and the breaks are followed from
+    there.  Returns the step's flags, its break lanes and the state it
+    leaves."""
+    plo, phi = _prefix(xw, True), _prefix(xw, False)
+    own, folds = [], []
+    for lane in range(32):
+        flo = fhi = xw[lane]
+        first = 32
+        for j in range(lane + 1, nvalid):
+            flo = xw[j] if xw[j] < flo else flo
+            fhi = xw[j] if xw[j] > fhi else fhi
+            if first == 32 and (fhi - flo) > err2:
+                first = j
+        own.append(first)
+        folds.append((flo, fhi))
+    cl = [v if v < lo else lo for v in plo]
+    ch = [v if v > hi else hi for v in phi]
+    breaks = [j < nvalid and (ch[j] - cl[j]) > err2 for j in range(32)]
+    at = breaks.index(True) if any(breaks) else 32
+    flags, lanes, last = [False] * nvalid, [], -1
+    while at < nvalid:
+        flags[at] = True
+        lanes.append(at)
+        last, at = at, own[at]
+    if last < 0:
+        return flags, [32], cl[nvalid - 1], ch[nvalid - 1]
+    return flags, lanes, folds[last][0], folds[last][1]
+
+
+def _warp_model(xs, err, mode, f):
+    """csrc/segment_scan.cu's walking warp, 32 points a step from i0.
+    PMC: the step of ``_pmc_step``, the next from i0 + 32.  Swing: the
+    cone closed by the prefix across the warp seeded with the carry, the
+    first breaking lane (the ballot) ends the step, the next starts after
+    it.  Returns the outputs and the lanes where steps broke (32: a step
+    that carried its state into the next)."""
+    n = len(xs)
+    err = f(err)
+    one, half, err2 = f(1.0), f(0.5), f(2.0) * f(err)
+    lo, hi = f(np.inf), f(-np.inf)
+    t0, x0, u, l = f(0.0), xs[0], f(np.inf), f(-np.inf)
+    outs = [[None] * n for _ in range(1 if mode == "pmc" else 5)]
+    lanes, i0 = [], 0
+    while i0 < n:
+        nvalid = min(32, n - i0)
+        xw = [xs[i0 + j] if j < nvalid else f(0.0) for j in range(32)]
+        if mode == "pmc":
+            flags, got, lo, hi = _pmc_step(xw, nvalid, lo, hi, err2)
+            outs[0][i0:i0 + nvalid] = flags
+            lanes += got
+            i0 += nvalid
+            continue
+        t = [f(i0 + j) for j in range(32)]
+        dt = [t[j] - t0 for j in range(32)]
+        dt = [v if v > one else one for v in dt]
+        pu = _prefix([(xw[j] + err - x0) / dt[j] for j in range(32)], True)
+        pl = _prefix([(xw[j] - err - x0) / dt[j] for j in range(32)], False)
+        nu = [a if a < u else u for a in pu]
+        nl = [a if a > l else l for a in pl]
+        b = [j < nvalid and t0 != t[j] and nl[j] > nu[j] for j in range(32)]
+        kb = b.index(True) if any(b) else nvalid
+        for j in range(kb):
+            for seq, v in zip(outs, (False, t0, x0, nu[j], nl[j])):
+                seq[i0 + j] = v
+        if not any(b):
+            u, l = nu[nvalid - 1], nl[nvalid - 1]
+            lanes.append(32)
+            i0 += nvalid
+            continue
+        lanes.append(kb)
+        up, lp = (nu[kb - 1], nl[kb - 1]) if kb else (u, l)
+        tk = f(i0 + kb)
+        x0 = x0 + half * (up + lp) * (tk - one - t0)
+        t0 = tk - one
+        dt2 = tk - t0
+        dt2 = dt2 if dt2 > one else one
+        a, c = xw[kb] + err - x0, xw[kb] - err - x0
+        u = a if dt2 == one else a / dt2
+        l = c if dt2 == one else c / dt2
+        for seq, v in zip(outs, (True, t0, x0, u, l)):
+            seq[i0 + kb] = v
+        i0 += kb + 1
+    return outs, lanes
+
+
+def _segments_series(lengths, err, seed, swing):
+    """A series of segments of the given lengths: PMC's levels (or
+    Swing's lines) jump by 8 err between segments, with noise within
+    +-err/4 of them, so most steps break where a segment ends."""
+    rng = np.random.default_rng(seed)
+    out, level, slope = [], 0.0, 0.0
+    for n in lengths:
+        level += 8 * err * rng.choice((-1, 1))
+        slope = (rng.standard_normal() * err) if swing else 0.0
+        base = level + slope * np.arange(n)
+        out.append(base + rng.uniform(-err / 4, err / 4, n))
+        level = base[-1]
+    return np.concatenate(out)
+
+
+def _hold_model(x, err, mode):
+    """The warp model against the plain walk, bit for bit in every
+    output; returns the model's break lanes."""
+    f = ss._scalar_type(torch.from_numpy(x).dtype)
+    xs = x.tolist() if f is float else list(x)
+    got, lanes = _warp_model(xs, err, mode, f)
+    want = ss.segment_scan_plain(torch.from_numpy(x), err, mode)
+    assert np.array_equal(np.array(got[0]), want[0].numpy())
+    for g, w in zip(got[1:], want[1:]):
+        g = np.array(g, dtype=x.dtype)
+        w = w.numpy()
+        assert np.array_equal(g.view(f"u{x.dtype.itemsize}"),
+                              w.view(f"u{x.dtype.itemsize}"))
+    return lanes
+
+
+# segment lengths: breaks at a step's first and last lanes (Swing's steps
+# start after a break: 1 and 32; PMC's at multiples of 32: 31 and 63, 64),
+# segments longer than a step (33, 64, 65, 100)
+LENGTHS = (31, 32, 1, 32, 33, 64, 1, 65, 5, 31, 2, 100, 3, 1, 1, 32, 40)
+
+
+@pytest.mark.parametrize("dtype", (np.float64, np.float32))
+@pytest.mark.parametrize("mode", ss.MODES)
+def test_warp_model_breaks_at_window_edges(mode, dtype):
+    """Breaks at a step's first and last lane and segments longer than 32
+    points: the warp's steps give the walk's bits."""
+    err = 0.3
+    x = _segments_series(LENGTHS, err, seed=3,
+                         swing=mode == "swing").astype(dtype)
+    lanes = _hold_model(x, err, mode)
+    assert 0 in lanes and 32 in lanes
+    if mode == "pmc":
+        assert 31 in lanes
+
+
+@pytest.mark.parametrize("dtype", (np.float64, np.float32))
+@pytest.mark.parametrize("err", (0.01, 0.2, 1.5))
+@pytest.mark.parametrize("mode", ss.MODES)
+def test_warp_model_equals_plain(mode, err, dtype):
+    x = _series(1500, seed=4).astype(dtype)
+    _hold_model(x, err, mode)
+
+
+@pytest.mark.parametrize("err", (0.0, -0.0))
+@pytest.mark.parametrize("mode", ss.MODES)
+def test_warp_model_signed_zero_ties(mode, err):
+    """A series of +0, -0 and a few ones from x0 = +0 at err +0 (the lower
+    slopes (x - err) - x0 are -0 at x = -0, +0 at x = +0) and at err -0
+    (the upper slopes likewise): the cone's prefix meets ties of +0 and
+    -0 and keeps the earlier zero, as the walk does (fmin and fmax would be
+    free to take either)."""
+    rng = np.random.default_rng(7)
+    x = rng.choice(np.array([0.0, -0.0, 0.0, -0.0, 1.0]), 600)
+    x[0] = 0.0
+    _hold_model(x, err, mode)
+    if mode == "swing":
+        out = ss.segment_scan_plain(torch.from_numpy(x), err, "swing")
+        side = out[4 if np.signbit(err) == 0 else 3].numpy()
+        zeros = side[side == 0]
+        assert np.signbit(zeros).any() and (~np.signbit(zeros)).any()
+
+
 def test_plain_scan_float32_rounds_in_float32():
     x32 = _series(300, seed=2).astype(np.float32)
     out = ss.segment_scan_plain(torch.from_numpy(x32), 0.2, "swing")

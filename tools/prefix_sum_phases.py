@@ -61,8 +61,10 @@ def instrument(src: str) -> str:
     put("  T v[16];\n", before="  STAMP(1);\n")
     put("    upsweep(s, v, k + 1 < rounds);\n", before="    STAMP(2);\n",
         after="    STAMP(3);\n")
-    put("  cluster_wait();\n", before="  STAMP(4);\n", after="  STAMP(5);\n")
-    put("  bar_wait(bar);\n", before="  STAMP(6);\n", after="  STAMP(7);\n")
+    put("  cl::cluster_wait();\n", before="  STAMP(4);\n",
+        after="  STAMP(5);\n")
+    put("  cl::bar_wait(bar);\n", before="  STAMP(6);\n",
+        after="  STAMP(7);\n")
     put("  // the carries of tile t", before="  STAMP(8);\n")
     put("  // pass 2: the last round", before="  STAMP(9);\n")
     put("    downsweep(s, v, car + 3 * k, out, t, n);\n  }\n",

@@ -15,12 +15,16 @@ tree's kernels are built as the port builds them; each ``--variant`` is one
 more tree, built the same way.  ``--kernels`` keeps a subset of STEMS.
 
 1. On each of ``chip_smoke.py``'s phase-3 cases of the kernels (both
-   datasets; the window kernels' boundary-heavy cases too) every build is
+   datasets; the window kernels' boundary-heavy cases too; dense_sxx on
+   one series, on ``KERNEL_LANES`` lanes and at min_temp's 365 lags;
+   segment_scan in both modes at the searches' error bounds, as
+   ``run_baselines`` holds it) every build is
    held against its own tree's plain version (the tree's ``kernels/ref.py``
    loaded with it, since trees may sum in other orders; lag_dot against
    this tree's) under mae, rmse and cheb (prefix_devs: its greedy walk
-   under mae, and at K <= 4,096 under rmse and cheb too; prefix_sum's plain
-   version on the CPU), at ``chip_smoke.TOL``, then timed under
+   under mae, and at K <= 4,096 under rmse and cheb too; prefix_sum's,
+   dense_sxx's and segment_scan's plain versions on the CPU;
+   segment_scan exactly), at ``chip_smoke.TOL``, then timed under
    mae with CUDA events in turns
    (parent, this tree, the variants, then the same in reverse; each turn
    ``chip_smoke.device_ms``).
@@ -33,8 +37,9 @@ more tree, built the same way.  ``--kernels`` keeps a subset of STEMS.
    the window kernels, the share of launches with a candidate that is not
    interior and the interior share of candidates.  Then each build
    replays every recorded launch (its outputs must equal the recorded
-   ones at ``chip_smoke.TOL``, or for prefix_sum its own tree's plain
-   version on the CPU bit for bit) and is timed over them in the same turns
+   ones at ``chip_smoke.TOL``, dense_sxx's bit for bit, or for prefix_sum
+   its own tree's plain version on the CPU bit for bit; segment_scan has
+   no main-path launches) and is timed over them in the same turns
    (the window kernels' launches with every candidate interior and the
    others apart), in chunks of 256 enqueued behind a busy card, so the sum
    is the kernel's launch-weighted device time over the real runs.  The
@@ -65,13 +70,14 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
 import chip_smoke  # noqa: E402
+from repro_torch.baselines import functional as _functional  # noqa: E402
 from repro_torch.core import cameo as _cameo  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import ops as _ops  # noqa: E402
 from repro_torch.kernels import ref as _ref  # noqa: E402
 
 STEMS = ("acf_window_impact", "window_rows", "acf_impact", "lag_dot",
-         "prefix_devs", "prefix_sum")
+         "prefix_devs", "prefix_sum", "dense_sxx", "segment_scan")
 WINDOW = ("acf_window_impact", "window_rows")
 # each kernel's wrapper: (module of kernels/, function)
 WRAPPER_OF = {"acf_window_impact": ("acf_window_impact",
@@ -80,14 +86,18 @@ WRAPPER_OF = {"acf_window_impact": ("acf_window_impact",
               "acf_impact": ("acf_impact", "acf_impact_cuda"),
               "lag_dot": ("lag_dot", "lag_dot_cuda"),
               "prefix_devs": ("fused_round", "prefix_devs_cuda"),
-              "prefix_sum": ("prefix_sum", "prefix_sum_cuda")}
+              "prefix_sum": ("prefix_sum", "prefix_sum_cuda"),
+              "dense_sxx": ("dense_sxx", "dense_sxx_cuda"),
+              "segment_scan": ("segment_scan", "segment_scan_cuda")}
 # each kernel's plain version (name in the same module), held to its own
 # tree's: the trees may sum in other orders
 OWN_PLAIN = {"acf_window_impact": "acf_window_impact_plain",
              "window_rows": "window_rows_plain",
              "acf_impact": "acf_impact_plain",
              "prefix_devs": "prefix_devs_plain",
-             "prefix_sum": "prefix_sum_plain"}
+             "prefix_sum": "prefix_sum_plain",
+             "dense_sxx": "dense_sxx_plain",
+             "segment_scan": "segment_scan_plain"}
 
 
 def tree_ref(name: str, tree: Path):
@@ -224,6 +234,66 @@ def cases(device, stems):
                     return fn(x.cpu()).to(device)
                 yield ("prefix_sum", name, f"{list(x.shape)} float64", run,
                        plain, ("mae",))
+        if "dense_sxx" in stems:
+            # one series (a round's delta on the bucket), the lanes of
+            # KERNEL_LANES, and (with uk_elec) min_temp's 365 lags
+            cfg, _, _, ny, y64, *_ = chip_smoke.kernel_inputs(device, name)
+            B = chip_smoke.KERNEL_LANES[name]
+            _, _, _, yl, *_, nyt = chip_smoke.lanes_inputs(device, name, B)
+            dl = torch.stack([chip_smoke.dense_delta(yl[b], ny, seed=b)
+                              for b in range(B)])
+            forms = [(name, y64, chip_smoke.dense_delta(y64, ny), ny,
+                      cfg.lags), (name, yl, dl, nyt, cfg.lags)]
+            if name == chip_smoke.DATASETS[0]:
+                c365, _, _, n365, y365, *_ = chip_smoke.kernel_inputs(
+                    device, "min_temp")
+                forms.append(("min_temp", y365,
+                              chip_smoke.dense_delta(y365, n365), n365,
+                              c365.lags))
+            for dname, y, d, ny_, L in forms:
+                def run(w, measure, y=y, d=d, ny_=ny_, L=L):
+                    return w(y, d, ny_, L)
+
+                def plain(measure, fn, y=y, d=d, ny_=ny_, L=L):
+                    return fn(y.cpu(), d.cpu(), ny_.cpu() if isinstance(
+                        ny_, torch.Tensor) else ny_, L).to(device)
+                yield ("dense_sxx", dname, f"{list(y.shape)} L={L} float64",
+                       run, plain, ("mae",))
+        if "segment_scan" in stems:
+            # chip_smoke.run_baselines' holds: the search's parameter and
+            # SEGMENT_SCAN_SPREAD times it, float64; float32 at the first
+            x, params = segment_scan_params(device, name)
+            xt = torch.from_numpy(x).to(device)
+            for mode in chip_smoke._segscan.MODES:
+                err = params[mode]
+                for xs, e in ((xt, err),
+                              (xt, chip_smoke.SEGMENT_SCAN_SPREAD * err),
+                              (xt.float(), err)):
+                    def run(w, measure, xs=xs, e=e, mode=mode):
+                        return _flat(w(xs, e, mode))
+
+                    def plain(measure, fn, xs=xs, e=e, mode=mode):
+                        return _flat(fn(xs.cpu(), e, mode)).to(device)
+                    yield ("segment_scan", name,
+                           f"{mode} n={xs.shape[0]} {xs.dtype} err={e:.6g}",
+                           run, plain, ("mae",))
+
+
+def segment_scan_params(device, name: str) -> tuple:
+    """``name``'s baseline series and the PMC and Swing searches'
+    parameters on the card, the error bounds chip_smoke.py's segment_scan
+    holds take (``run_baselines``)."""
+    x, cfg = chip_smoke._baseline_series(name)
+    params = {mode: chip_smoke._bl.acf_constrained_search(
+        x, cfg, chip_smoke._search_fn(mode),
+        iters=chip_smoke.BASELINE_ITERS, device=device)[3]
+        for mode in chip_smoke._segscan.MODES}
+    return x, params
+
+
+def _flat(outs) -> torch.Tensor:
+    """segment_scan's outputs as one float64 row (the flags as 0 / 1)."""
+    return torch.cat([o.to(torch.float64) for o in outs])
 
 
 # the main-path runs of chip_smoke.py: (dataset, path, length)
@@ -237,7 +307,10 @@ CALLERS = {"acf_window_impact": [(_ops, "acf_window_impact_cuda")],
                           (_ops, "acf_impact_cuda")],
            "lag_dot": [(_ops, "lag_dot_cuda")],
            "prefix_devs": [(chip_smoke._fused, "prefix_devs_cuda")],
-           "prefix_sum": [(_ops, "prefix_sum_cuda")]}
+           "prefix_sum": [(_ops, "prefix_sum_cuda")],
+           "dense_sxx": [(_ops, "dense_sxx_cuda")],
+           # the baselines' scans: no main-path run launches them
+           "segment_scan": [(_functional, "segment_scan_cuda")]}
 
 
 def _clone(v):
@@ -366,6 +439,9 @@ def real_rows(device, libs, wrappers, plains, use, turns, stems) -> list:
                     want = plains[which][kname](
                         *(a.cpu() for a in c["args"]), **c["kw"])
                     chip_smoke.require(torch.equal(got.cpu(), want), what)
+                elif kname == "dense_sxx":
+                    # the recorded bits (a round's delta may be all zeros)
+                    chip_smoke.require(torch.equal(got, c["out"]), what)
                 else:
                     chip_smoke.check_close(what, kname, got, c["out"])
         for part, sub in split.items():
@@ -440,12 +516,20 @@ def main() -> int:
                             for m in measures}
             err = 0.0
             for measure in measures:
-                err = max(err, chip_smoke.check_close(
-                    f"{which} {kname} {dataset} {label} ({measure})", kname,
-                    run(wrappers[which][kname], measure), want[measure]))
+                what = f"{which} {kname} {dataset} {label} ({measure})"
+                got = run(wrappers[which][kname], measure)
+                if kname == "segment_scan":
+                    # its flags may all be 0: held exactly, not relatively
+                    chip_smoke.require(torch.equal(got, want[measure]),
+                                       f"{what} disagrees with its plain "
+                                       f"version")
+                    continue
+                err = max(err, chip_smoke.check_close(what, kname, got,
+                                                      want[measure]))
             row[f"max_abs_err_{which}"] = err
         times = {which: [] for which in libs}
-        reps = (5, 5) if kname == "prefix_devs" else (7, 20)
+        reps = (5, 5) if kname in ("prefix_devs", "segment_scan") \
+            else (7, 20)
         for which in turns:
             use(which)
             w = wrappers[which][kname]
