@@ -124,7 +124,26 @@ Phases, each of which fails the run (non-zero exit) on a wrong result:
    segment_scan (the PMC and Swing scans) against its plain version at
    tolerance 0 in both modes at both datasets' full lengths, at the error
    bound each search settled on and 10 times it, timed with CUDA events
-   (its launches there do not count);
+   (its launches there do not count).  Then the serving phase (the model
+   zoo's attention path, ``run_serving``): qwen3-0.6b at its published
+   width in bfloat16, weights from seed 0, ``Engine.generate`` greedy on
+   8 prompts of 2,048 tokens (the chunked prefill) and 32 new tokens, a
+   warm and a timed call with equal tokens in range (prefill s, decode ms
+   a token, tokens/s, peak memory); CAMEO's KV selection, ``prune_tree``
+   of the prefill caches (28 layers x 8 rows of 2,080 positions, keep 512,
+   16 lags: 224 lanes of one ``compress_batch``, its kernel launches
+   counted, rounds from the telemetry), the first and last layers' lanes
+   held to the CPU path (run in a worker process) in their series' bits
+   and kept slots, the kept entries bit-exact copies, then 8 decode steps
+   on the compacted cache; the bfloat16 prefill's last-position logits
+   and a first decode step (2 rows) within 1e-1 x RMS of the float32
+   ``forward`` over the same tokens, greedy tokens equal outside
+   near-ties; the same weights in float32, where 32 decode
+   steps after a 1,024-token prefill equal ``forward``'s logits over 2,048
+   tokens within 1e-3 x RMS; qwen3-0.6b reduced from the same seed on the
+   card and the CPU, logits within 1e-4 x RMS and greedy tokens equal but
+   at near-ties; ``serve {...}`` lines and the card's name and power
+   limit;
 5. the lock-step check — a scan round on uk_elec from one carry on the
    card: the greedy branch with the prefix_devs kernel and with its plain
    version must take the same candidates; then the seconds of each phase
@@ -164,6 +183,8 @@ sys.path.insert(0, str(ROOT / "src"))
 from repro_torch import baselines as _bl  # noqa: E402
 from repro_torch import obs  # noqa: E402
 from repro_torch import sharding as _shd  # noqa: E402
+from repro_torch.baselines import functional as _functional  # noqa: E402
+from repro_torch.configs.registry import get_config, get_reduced  # noqa: E402
 from repro_torch.core import cameo  # noqa: E402
 from repro_torch.core import parallel as _par  # noqa: E402
 from repro_torch.core import streaming  # noqa: E402
@@ -182,6 +203,12 @@ from repro_torch.kernels import ops as _ops  # noqa: E402
 from repro_torch.kernels import prefix_sum as _prefix_sum  # noqa: E402
 from repro_torch.kernels import ref as _ref  # noqa: E402
 from repro_torch.kernels import segment_scan as _segscan  # noqa: E402
+from repro_torch.models.attention import KVCache  # noqa: E402
+from repro_torch.models.model import (decode_step, forward,  # noqa: E402
+                                      model_defs, prefill)
+from repro_torch.models.params import init_params  # noqa: E402
+from repro_torch.serving import kv_prune  # noqa: E402
+from repro_torch.serving.engine import Engine, ServeConfig  # noqa: E402
 from repro_torch.store import CameoStore  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -197,6 +224,16 @@ WRAPPERS = {"lag_dot": _lag_dot.lag_dot_cuda,
             "prefix_sum": _prefix_sum.prefix_sum_cuda,
             "dense_sxx": _dense_sxx.dense_sxx_cuda,
             "segment_scan": _segscan.segment_scan_cuda}
+# each kernel's wrapper as its callers look it up: (module, attribute)
+CALLERS = {"acf_window_impact": ((_ops, "acf_window_impact_cuda"),),
+           "window_rows": ((_fused, "window_rows_cuda"),),
+           "acf_impact": ((cameo, "acf_impact_cuda"),
+                          (_ops, "acf_impact_cuda")),
+           "lag_dot": ((_ops, "lag_dot_cuda"),),
+           "prefix_devs": ((_fused, "prefix_devs_cuda"),),
+           "prefix_sum": ((_ops, "prefix_sum_cuda"),),
+           "dense_sxx": ((_ops, "dense_sxx_cuda"),),
+           "segment_scan": ((_functional, "segment_scan_cuda"),)}
 SOURCES = {"lag_dot": "src/repro_torch/kernels/csrc/lag_dot.cu",
            "acf_impact": "src/repro_torch/kernels/csrc/acf_impact.cu",
            "window_rows": "src/repro_torch/kernels/csrc/window_rows.cu",
@@ -235,8 +272,10 @@ TOL = {"lag_dot": (0.0, 0.0), "acf_impact": (0.0, 0.0),
        "prefix_devs": (0.0, 0.0), "prefix_sum": (0.0, 0.0),
        "dense_sxx": (0.0, 0.0), "segment_scan": (0.0, 0.0),
        # the library yardsticks (conv1d) of lag_dot and dense_sxx sum in
-       # their own order
-       "conv1d": (1e-10, 1e-10), "dense_sxx_conv1d": (1e-10, 1e-10)}
+       # their own order (float64; dense_sxx's float32 launches of the KV
+       # selection in float32)
+       "conv1d": (1e-10, 1e-10), "dense_sxx_conv1d": (1e-10, 1e-10),
+       "dense_sxx_conv1d_f32": (1e-5, 1e-5)}
 DATASETS = ("uk_elec", "aus_elec")
 MEASURES = ("mae", "rmse", "cheb")
 EPS = 1e-2
@@ -360,11 +399,36 @@ def timed_once(fn, device):
     return out, start.elapsed_time(end)
 
 
+def _peak(dtype) -> float:
+    return FP64_FLOPS if dtype == torch.float64 else FP32_FLOPS
+
+
 def bound_ms(nbytes: float, flops: float, peak_flops: float):
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = flops / peak_flops
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
                                        else "operations")
+
+
+def _item(dtype) -> int:
+    return torch.empty(0, dtype=dtype).element_size()
+
+
+def lag_dot_bound(B, n, L, dtype):
+    """lag_dot's self form on B lanes of n points: each lane read once
+    (with its L-point tail), its L sums written; 2 operations a (point,
+    lag) term."""
+    return bound_ms(B * (n + L) * _item(dtype), B * 2.0 * n * L,
+                    _peak(dtype))
+
+
+def acf_impact_bound(B, P, nyb, L, dtype):
+    """acf_impact on B lanes of P points: per (point, lag) 7 for the five
+    moment updates, 12 for Eq. 2 with its sqrt and divide, 3 for the
+    measure; per point 3 for e = d (2 y + d).  Bytes: y, the deltas,
+    table + p0, the output."""
+    return bound_ms(B * (nyb + 2 * P + 6 * L) * _item(dtype),
+                    B * P * (22.0 * L + 3), _peak(dtype))
 
 
 def check_close(what: str, kname: str, got, want) -> float:
@@ -467,8 +531,9 @@ def dense_sxx_entry(device, name: str, y: torch.Tensor, d: torch.Tensor,
     # every unmasked (point, lag) is two products and an add, and its add
     # into the lag's sum
     terms = sum(max(int(n) - l, 0) for n in nys for l in range(1, L + 1))
-    bnd, by = bound_ms(2 * 8 * B * nyb + 8 * B * L,
-                       4.0 * terms + float(nys.sum()), FP64_FLOPS)
+    item = y.element_size()
+    bnd, by = bound_ms(2 * item * B * nyb + item * B * L,
+                       4.0 * terms + float(nys.sum()), _peak(y.dtype))
     # the library's one call: a grouped two-channel convolution, lane b's
     # [z, d] (zeros past its ny and L more) against its [d, y] (zeros past
     # ny); output l is sum_t d_t z_{t+l} + y_t d_{t+l} over the unmasked t
@@ -481,10 +546,12 @@ def dense_sxx_entry(device, name: str, y: torch.Tensor, d: torch.Tensor,
 
     def conv():
         return F.conv1d(signal, weight, groups=B)[0, :, 1:].reshape(got.shape)
-    check_close(f"{what} conv1d yardstick", "dense_sxx_conv1d", conv(), got)
+    check_close(f"{what} conv1d yardstick", "dense_sxx_conv1d" if
+                y.dtype == torch.float64 else "dense_sxx_conv1d_f32", conv(),
+                got)
     return dict(name="dense_sxx", shape=(f"B={lanes} lanes x " if lanes
                                          else "") + f"nyb={nyb} L={L} "
-                                                    f"float64",
+                                                    f"{str(y.dtype)[6:]}",
                 max_abs_err=err,
                 ms=device_ms(lambda: _dense_sxx.dense_sxx_cuda(y, d, ny, L),
                              device),
@@ -541,7 +608,7 @@ def phase_kernels(device, name: str, length=None) -> list:
         return F.conv1d(b_ext[1:].view(1, 1, -1), y64.view(1, 1, -1)).view(-1)
     if device.type == "cuda":
         check_close(f"{name} conv1d yardstick", "conv1d", conv(), want)
-    bnd, by = bound_ms((nyb + L) * 8, 2.0 * nyb * L, FP64_FLOPS)
+    bnd, by = lag_dot_bound(1, nyb, L, torch.float64)
     out.append(dict(
         name="lag_dot", shape=f"n={nyb} L={L} float64", max_abs_err=err,
         ms=device_ms(lambda: _lag_dot.lag_dot_cuda(y64, L=L), device),
@@ -780,22 +847,18 @@ def acf_impact_cases(device, name: str, length=None) -> list:
     p_s = acf_from_aggregates(t_s, y_s.shape[0])
     d_s = torch.from_numpy(rng.standard_normal(n_seq)
                            * float(torch.std(y_s)) * 0.05).to(device)
-    # per (point, lag): 7 for the five moment updates, 12 for Eq. 2 with its
-    # sqrt and divide, 3 for the measure; per point 3 for e = d (2 y + d).
-    # Bytes: y, the deltas, table + p0, the output.
     return [
         dict(label="rounds", P=nb, L=L, kappa=kap, item=4,
              shape=f"P={nb} nyb={nyb} kappa={kap} L={L} float32",
              args=(y64.float(), dval.float(), table.float(), p0.float()),
              kw=dict(L=L, ny=ny_t, kappa=kap),
-             bound=bound_ms((nyb + nb + 6 * L + nb) * 4, nb * (22.0 * L + 3),
-                            FP32_FLOPS)),
+             bound=acf_impact_bound(1, nb, nyb, L, torch.float32)),
         dict(label="sequential init", P=n_seq, L=L, kappa=kap, item=8,
              shape=f"P={n_seq} ny={y_s.shape[0]} kappa={kap} L={L} float64 "
                    f"(sequential init)",
              args=(y_s, d_s, t_s, p_s), kw=dict(L=L, kappa=kap),
-             bound=bound_ms((y_s.shape[0] + 2 * n_seq + 6 * L) * 8,
-                            n_seq * (22.0 * L + 3), FP64_FLOPS))]
+             bound=acf_impact_bound(1, n_seq, y_s.shape[0], L,
+                                    torch.float64))]
 
 
 def acf_impact_entry(device, name: str, c: dict) -> dict:
@@ -967,8 +1030,7 @@ def phase_kernels_lanes(device, name: str, B: int, length=None,
         device_ms(lambda: _lag_dot.lag_dot_cuda(y64, L=L), device),
         device_ms(lambda: _lag_dot.lag_dot_plain(y64, L=L), device,
                   reps=3, inner=3),
-        bound_ms(B * (nyb + L) * 8, B * 2.0 * nyb * L, FP64_FLOPS), B,
-        device_ms(conv, device)))
+        lag_dot_bound(B, nyb, L, torch.float64), B, device_ms(conv, device)))
 
     # lag_dot's cross form (the partitioned mode's delta contributions):
     # [B, nyb] against b [B, nyb]
@@ -1007,8 +1069,7 @@ def phase_kernels_lanes(device, name: str, B: int, length=None,
             *args, measure="mae", **kw), device),
         device_ms(lambda: _acf_impact.acf_impact_plain(
             *args, measure="mae", **kw), device, reps=3, inner=3),
-        bound_ms(B * (nyb + nb + 6 * L + nb) * 4, B * nb * (22.0 * L + 3),
-                 FP32_FLOPS), B))
+        acf_impact_bound(B, nb, nyb, L, torch.float32), B))
 
     # window_rows, tiers B and C at the full-size round's capacities, each
     # lane its own candidates
@@ -2439,6 +2500,474 @@ def run_baselines(device, sizes=None, refs=None, log=print) -> dict:
                 seconds_with_holds=time.perf_counter() - t0)
 
 
+# ---------------------------------------------------------------------------
+# the serving phase (the model zoo's attention path, ``serving/``)
+# ---------------------------------------------------------------------------
+
+# qwen3-0.6b at its published width in its own bfloat16, weights from seed
+# 0: generation (B prompts of S tokens, S > attn_chunk: the chunked
+# prefill), the float32 cache path (``cache_B`` rows, ``forward`` over S,
+# ``prefill`` over ``cache_prefill`` (unchunked) and ``cache_steps``
+# teacher-forced decode steps), CAMEO's KV selection of the generation's
+# prefill caches (``keep`` of S + new positions at ``lags``; the held
+# layers' lanes equal the CPU path's), ``pruned_steps`` decode steps on the
+# compacted cache, and the reduced config card against CPU
+SERVE = dict(arch="qwen3-0.6b", reduced=False, attn_chunk=None, B=8, S=2048,
+             new=32, cache_B=2, cache_prefill=1024, cache_steps=32, keep=512,
+             lags=16, held_layers=(0, -1), pruned_steps=8, small_B=4,
+             small_S=64, small_new=16)
+# decode logits against forward's at the same position (float32, TF32
+# off), and the reduced config's logits card against CPU: |diff| <= tol x
+# RMS(logits); a greedy token may part only where the CPU's top-2 margin is
+# within 10 tol x RMS
+SERVE_CACHE_TOL = 1e-3
+SERVE_SMALL_TOL = 1e-4
+# the bfloat16 generation's prefill (last position) and first decode step
+# against the float32 forward on the same tokens: |diff| <= tol x RMS.
+# bfloat16 rounds every projection to 8 bits, and over 28 layers the
+# reference itself drifts from its float32 run by ~5% of the RMS
+# (tests/test_torch_models.py::test_bfloat16_drift_from_float32_is_the_
+# reference_s, which holds the port's drift to the reference's): tol is
+# twice that.  The greedy tokens equal the float32 argmax wherever its
+# top-2 margin exceeds twice the measured error (no near-tie).
+SERVE_BF16_TOL = 1e-1
+# the kernels CAMEO's selection launches (compress_batch's rounds path)
+SERVE_KERNELS = ("lag_dot", "prefix_sum", "dense_sxx", "acf_impact",
+                 "window_rows")
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def serving_cpu_select(keys: np.ndarray, pos_ids: np.ndarray, keep: int,
+                       lags: int) -> dict:
+    """The CPU path's importance series and ``select_positions`` of the held
+    layers' lanes (``keys [lanes, S, K, dh]`` float32, exact copies of the
+    cache's values)."""
+    k = torch.from_numpy(keys)
+    one = torch.ones(1)
+    cache = KVCache(k=k, v=k, pos_ids=torch.from_numpy(pos_ids), k_scale=one,
+                    v_scale=one)
+    t0 = time.perf_counter()
+    sig = kv_prune.importance_series(cache)
+    idx = kv_prune.select_positions(cache, keep, lags)
+    return dict(sig=sig.numpy(), idx=idx.numpy(),
+                seconds=time.perf_counter() - t0)
+
+
+def _serve_generate(device, cfg, params, sz, init_s, log) -> tuple:
+    """Item 1: a warm and a timed greedy ``Engine.generate``; the tokens of
+    both calls equal and in range.  Returns (row, prompts, tokens)."""
+    B, S, new = sz["B"], sz["S"], sz["new"]
+    require(cfg.attn_chunk is not None and S > cfg.attn_chunk,
+            f"serve: S = {S} does not take the chunked prefill "
+            f"(attn_chunk {cfg.attn_chunk})")
+    eng = Engine(cfg, params, ServeConfig(max_new_tokens=new), device=device)
+    prompts = np.random.default_rng(0).integers(
+        0, cfg.vocab, size=(B, S)).astype(np.int32)
+    first = eng.generate(prompts)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+    t0 = time.perf_counter()
+    toks = eng.generate(prompts)
+    _sync(device)
+    wall = time.perf_counter() - t0
+    require(np.array_equal(first, toks),
+            "serve: two greedy generate calls gave other tokens")
+    require(toks.shape == (B, new) and toks.min() >= 0
+            and toks.max() < cfg.vocab, "serve: token ids out of range")
+    st = eng.stats
+    row = dict(
+        step="generate", arch=cfg.name, dtype=cfg.param_dtype, B=B, S=S,
+        new_tokens=new, chunked_prefill=True, deterministic=True,
+        prefill_s=st["prefill_s"],
+        decode_ms_per_token=1e3 * st["decode_s"] / max(st["decode_steps"], 1),
+        tokens_per_s=B * new / wall, wall_s=wall, init_s=init_s,
+        max_memory_allocated=(torch.cuda.max_memory_allocated(device)
+                              if device.type == "cuda" else None))
+    log("serve " + json.dumps(row))
+    return row, prompts, toks
+
+
+def _recorder(wrapper, calls: list, limit):
+    def recording(*a, **kw):
+        out = wrapper(*a, **kw)
+        # a wrapper that its own module calls by this attribute counted on
+        # the recorder: the count goes to the wrapper
+        wrapper.launches += recording.launches
+        recording.launches = 0
+        if limit is None or len(calls) < limit:
+            calls.append((tuple(_clone(t) for t in a),
+                          {k: _clone(v) for k, v in kw.items()},
+                          out.clone()))
+        return out
+    recording.launches = 0
+    return recording
+
+
+@contextlib.contextmanager
+def record_launches(names, limit=None):
+    """Within the block, the wrappers of the kernels ``names`` record their
+    launches (at most ``limit`` of each) as (arguments, keywords, output),
+    cloned, into the yielded dict's lists; they launch and count as ever."""
+    got, saved = {k: [] for k in names}, []
+    for kname in names:
+        rec = _recorder(WRAPPERS[kname], got[kname], limit)
+        for mod, attr in CALLERS[kname]:
+            saved.append((mod, attr, getattr(mod, attr)))
+            setattr(mod, attr, rec)
+    try:
+        yield got
+    finally:
+        for mod, attr, fn in reversed(saved):
+            setattr(mod, attr, fn)
+
+
+def _clone(v):
+    return v.clone() if isinstance(v, torch.Tensor) else v
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.shape == b.shape and a.dtype == b.dtype and bool(torch.all(
+        (a == b) | (torch.isnan(a) & torch.isnan(b))
+        if a.is_floating_point() else a == b))
+
+
+def _finite_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    ok = torch.isfinite(a) & torch.isfinite(b)
+    return float(torch.max(torch.abs(a - b)[ok])) if bool(ok.any()) else 0.0
+
+
+def serving_kernel_entries(device, rec: dict) -> list:
+    """Each kernel's first launch in the KV selection (``rec``, from
+    :func:`record_launches`), on its recorded inputs (the main path's
+    shapes): a second launch gives the recorded bits, and those equal its
+    plain version's (tolerance 0); timed beside its plain version and,
+    where one exists, a PyTorch call.  Launches here are not counted by
+    the caller."""
+    out = []
+    for kname, (a, kw, res) in ((k, c[0]) for k, c in rec.items() if c):
+        if kname in ("prefix_sum", "dense_sxx"):
+            # their own entries: held to the plain version on the CPU, lanes
+            # to their one-lane launches, timed with the library's call
+            e = (prefix_sum_entry(device, "serving", a[0], a[0].shape[0])
+                 if kname == "prefix_sum" else
+                 dense_sxx_entry(device, "serving", *a, lanes=a[0].shape[0]))
+            require(_same_bits(WRAPPERS[kname](*a, **kw), res),
+                    f"serving {kname}: a second launch gave other bits")
+            out.append(dict(e, dataset="serving"))
+            continue
+        fn = WRAPPERS[kname]
+        plain = {"lag_dot": _lag_dot.lag_dot_plain,
+                 "acf_impact": _acf_impact.acf_impact_plain,
+                 "window_rows": _fused.window_rows_plain}[kname]
+        got = fn(*a, **kw)
+        # lag_dot's plain version chains every add of a lag on the card
+        # (seconds at 224 lanes): one timed call, the others' repeated
+        want, plain_ms = timed_once(lambda: plain(*a, **kw), device)
+        if kname != "lag_dot":
+            plain_ms = device_ms(lambda: plain(*a, **kw), device, reps=3,
+                                 inner=3)
+        require(_same_bits(got, res),
+                f"serving {kname}: a second launch gave other bits")
+        require(_same_bits(got, want),
+                f"serving {kname}: the kernel differs from its plain version "
+                f"on the main path's inputs")
+        y, L, B = a[0], kw["L"], a[0].shape[0]
+        dt, library = str(y.dtype)[6:], None
+        if kname == "lag_dot":
+            n = y.shape[-1]
+            shape = f"B={B} lanes x n={n} L={L} {dt}"
+            bound = lag_dot_bound(B, n, L, y.dtype)
+            if all(t is None for t in a[1:]) and not {"b", "halo"} & set(kw):
+                ext = F.pad(y, (0, L))
+                library = device_ms(lambda: F.conv1d(
+                    ext[None, :, 1:], y[:, None, :], groups=B), device)
+        elif kname == "acf_impact":
+            nyb, P = y.shape[-1], a[1].shape[-1]
+            shape = (f"B={B} lanes x P={P} nyb={nyb} kappa="
+                     f"{kw.get('kappa', 1)} L={L} {dt}")
+            bound = acf_impact_bound(B, P, nyb, L, y.dtype)
+        else:
+            K, Wy = a[1].shape[-2:]
+            shape = f"B={B} lanes x K={K} Wy={Wy} L={L} {dt}"
+            bound = window_rows_bound(B * K, Wy, L, B * y.shape[-1])
+        out.append(dict(_lanes_entry(
+            kname, shape, _finite_err(got, want),
+            device_ms(lambda: fn(*a, **kw), device), plain_ms, bound, B,
+            library), dataset="serving"))
+    return out
+
+
+def _serve_prune(device, cfg, params, prompts, toks, sz, pool, log) -> dict:
+    """Item 3: ``prune_tree`` of the generation's prefill caches through
+    ``compress_batch`` on ``device`` (counted); the held layers' series and
+    kept indices equal the CPU path's, the kept entries are bit-exact
+    copies; then decode steps on the compacted cache."""
+    B, S, new, keep, lags = (sz[k] for k in ("B", "S", "new", "keep",
+                                              "lags"))
+    with torch.inference_mode():
+        logits, caches = prefill(
+            params, cfg, {"tokens": torch.from_numpy(prompts).long().to(
+                device)}, max_len=S + new)
+    cache = caches["blocks"]["sub0"]
+    nl, _, size, K, dh = cache.k.shape
+    held = sorted({l % nl for l in sz["held_layers"]})
+    # the held layers' lanes, in prune_tree's fold order (layer-major)
+    hk = cache.k[held].reshape(len(held) * B, size, K, dh)
+    hp = cache.pos_ids[held].reshape(len(held) * B, size)
+    args = (hk.float().cpu().numpy(), hp.cpu().numpy(), keep, lags)
+    fut = pool.submit(serving_cpu_select, *args) if pool is not None \
+        else None
+    was = obs.OBS.enabled
+    obs.reset()
+    obs.OBS.enabled = True
+    try:
+        reset_counts()
+        with record_launches(SERVE_KERNELS, limit=1) as rec:
+            _sync(device)
+            t0 = time.perf_counter()
+            pruned = kv_prune.prune_tree(caches, keep, lags)
+            _sync(device)
+            sel_s = time.perf_counter() - t0
+        launches = read_counts()
+        rounds = obs.OBS.counter_value("cameo.batch_rounds_total")
+    finally:
+        obs.OBS.enabled = was
+    if device.type == "cuda":
+        for kname in SERVE_KERNELS:
+            require(launches[kname] > 0,
+                    f"serve: kernel {kname} was never launched by the KV "
+                    f"selection")
+    kernels = serving_kernel_entries(device, rec)
+    require(sorted(k["name"] for k in kernels) == sorted(
+        SERVE_KERNELS if device.type == "cuda" else ()),
+        f"serve: held {[k['name'] for k in kernels]} of the selection's "
+        f"kernels")
+    for k in kernels:
+        log(f"kernel {k['name']} serving [{k['shape']}] max_abs_err="
+            f"{k['max_abs_err']:.3e} tol 0 ms={k['ms']} plain_ms="
+            f"{k['plain_ms']} library_ms={k['library_ms']} bound_ms="
+            f"{k['bound_ms']:.3e} ({k['bound_by']})")
+    pc = pruned["blocks"]["sub0"]
+    require(tuple(pc.k.shape) == (nl, B, keep, K, dh),
+            f"serve: pruned cache shape {tuple(pc.k.shape)}")
+    one = torch.ones(1, device=device)
+    held_cache = KVCache(k=hk, v=hk, pos_ids=hp, k_scale=one, v_scale=one)
+    card_sig = kv_prune.importance_series(held_cache).cpu().numpy()
+    card_idx = kv_prune.select_positions(held_cache, keep, lags).cpu().numpy()
+    cpu = fut.result() if fut is not None else serving_cpu_select(*args)
+    require(np.array_equal(card_sig.view(np.int32), cpu["sig"].view(np.int32)),
+            f"serve: the card's importance series differs from the CPU's in "
+            f"{int(np.sum(card_sig != cpu['sig']))} of {card_sig.size} values")
+    require(np.array_equal(card_idx, cpu["idx"]),
+            f"serve: the card's kept indices differ from the CPU path's in "
+            f"{int(np.sum(np.any(card_idx != cpu['idx'], axis=1)))} lanes")
+    # prune_tree's kept entries are bit-exact copies at the CPU's indices
+    bidx = torch.arange(len(held) * B, device=device)[:, None]
+    ci = torch.from_numpy(cpu["idx"]).long().to(device)
+    for field, src in (("k", hk), ("v", cache.v[held].reshape(hk.shape)),
+                       ("pos_ids", hp)):
+        got = getattr(pc, field)[held].reshape((len(held) * B, keep)
+                                               + src.shape[2:])
+        require(torch.equal(got, src[bidx, ci]),
+                f"serve: pruned {field} is not the held lanes' entries at "
+                f"the CPU path's indices")
+    # the logits the float32 forward holds (item 2): the prefill's last
+    # position and a first decode step on the unpruned cache, of the first
+    # cache_B rows
+    nb = sz["cache_B"]
+    with torch.inference_mode():
+        step0, _ = decode_step(params, cfg, torch.from_numpy(
+            toks[:, :1]).long().to(device), caches, S)
+    bf16 = dict(tokens=np.concatenate([prompts[:nb], toks[:nb, :1]], 1),
+                greedy=toks[:nb, :2],
+                logits=torch.cat([logits[:nb, -1:], step0[:nb]], 1).float())
+    del caches, cache, hk, hp, held_cache, step0
+    tok = torch.argmax(logits[:, -1, :], dim=-1)
+    agree = []
+    for i in range(sz["pruned_steps"]):
+        agree.append(float(np.mean(tok.cpu().numpy() == toks[:, i])))
+        with torch.inference_mode():
+            logits, pruned = decode_step(params, cfg, tok[:, None], pruned,
+                                         S + i)
+        require(bool(torch.isfinite(logits).all()),
+                f"serve: decode step {i} on the pruned cache gave non-finite "
+                f"logits")
+        tok = torch.argmax(logits[:, -1, :], dim=-1)
+    cfg_sel = kv_prune.selection_config(size, keep, lags)
+    row = dict(
+        step="kv_prune", layers=nl, lanes=nl * B, positions=size, keep=keep,
+        lags=cfg_sel.lags, round_bucket=cameo._round_bucket(size, cfg_sel),
+        dtype=cfg_sel.dtype, target_cr=cfg_sel.target_cr, seconds=sel_s,
+        rounds_total=rounds, rounds_per_lane=rounds / (nl * B),
+        launches=launches, held_layers=held, held_lanes=len(held) * B,
+        series_bits_equal_cpu=True, kept_equal_cpu=True,
+        kept_entries_bit_exact=True, cpu_select_s=cpu["seconds"],
+        pruned_decode_steps=sz["pruned_steps"],
+        pruned_tokens_agree_unpruned=agree)
+    log("serve " + json.dumps(row))
+    return row, kernels, bf16
+
+
+def _hold_bf16(bf16: dict, ref: torch.Tensor, log) -> dict:
+    """The bfloat16 prefill's last-position logits and first decode step
+    (``bf16``) against the float32 forward's at the same positions
+    (``ref [B, 2, V]``), and the greedy tokens outside near-ties."""
+    got = bf16["logits"]
+    rms = float(torch.sqrt(torch.mean(ref.double() ** 2)))
+    err = float(torch.max(torch.abs(got - ref)))
+    top2 = torch.topk(ref, 2, dim=-1).values
+    sure = ((top2[..., 0] - top2[..., 1]) > 2 * err).cpu()
+    want = torch.argmax(ref, dim=-1).cpu().numpy()
+    parted = int(np.sum((want != bf16["greedy"]) & sure.numpy()))
+    row = dict(step="bf16_vs_float32", B=got.shape[0],
+               positions=["prefill last", "decode 0"], max_abs_err=err,
+               logits_rms=rms, err_over_rms=err / rms, tol=SERVE_BF16_TOL,
+               tokens_sure=int(sure.sum()), tokens_parted_sure=parted)
+    log("serve " + json.dumps(row))
+    require(err <= SERVE_BF16_TOL * rms,
+            f"serve: the bfloat16 logits part from the float32 forward's by "
+            f"{err} > {SERVE_BF16_TOL} x RMS {rms}")
+    require(parted == 0,
+            f"serve: {parted} bfloat16 greedy tokens differ from the float32 "
+            f"forward's outside a near-tie")
+    return row
+
+
+def _serve_cache_path(device, cfg, params, sz, bf16, log) -> tuple:
+    """Item 2: in float32, decode steps after an unchunked prefill equal
+    ``forward``'s chunked logits at the same positions; the bfloat16 run's
+    logits (``bf16``) are held to a float32 ``forward`` (unchunked) over
+    the same tokens."""
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                activ_dtype="float32")
+    params.float()
+    B, S, P, steps = (sz[k] for k in ("cache_B", "S", "cache_prefill",
+                                      "cache_steps"))
+    require(S > cfg.attn_chunk >= P,
+            f"serve: forward over {S} must be chunked and prefill over {P} "
+            f"not (attn_chunk {cfg.attn_chunk})")
+    with torch.inference_mode():
+        ref, _ = forward(params, dataclasses.replace(cfg32, attn_chunk=None),
+                         {"tokens": torch.from_numpy(bf16["tokens"]).long()
+                          .to(device)})
+        ref = ref[:, S - 1:S + 1].clone()
+    held = _hold_bf16(bf16, ref, log)
+    del ref
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, size=(B, S))).long().to(device)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        full, _ = forward(params, cfg32, {"tokens": toks})
+        want = full[:, P:P + steps].clone()
+        del full
+        _, caches = prefill(params, cfg32, {"tokens": toks[:, :P]},
+                            max_len=P + steps)
+        got = []
+        for i in range(steps):
+            ld, caches = decode_step(params, cfg32, toks[:, P + i:P + i + 1],
+                                     caches, P + i)
+            got.append(ld[:, 0])
+        got = torch.stack(got, dim=1)
+    _sync(device)
+    rms = float(torch.sqrt(torch.mean(want.double() ** 2)))
+    err = float(torch.max(torch.abs(got - want)))
+    require(err <= SERVE_CACHE_TOL * rms,
+            f"serve: decode logits part from forward's by {err} > "
+            f"{SERVE_CACHE_TOL} x RMS {rms}")
+    row = dict(step="cache_path", dtype="float32", B=B, forward_S=S,
+               prefill_S=P, decode_steps=steps, max_abs_err=err,
+               logits_rms=rms, tol=SERVE_CACHE_TOL,
+               seconds=time.perf_counter() - t0)
+    log("serve " + json.dumps(row))
+    return row, held
+
+
+def _serve_small(device, arch: str, sz, log) -> dict:
+    """Item 4: the reduced config (float32) from the same seed on the card
+    and on the CPU: logits of the teacher-forced sequence within tol x RMS,
+    greedy tokens equal but where the CPU's top-2 margin is a near-tie."""
+    cfg = get_reduced(arch)
+    B, S, new = sz["small_B"], sz["small_S"], sz["small_new"]
+    prompts = np.random.default_rng(2).integers(
+        0, cfg.vocab, size=(B, S)).astype(np.int32)
+    scfg = ServeConfig(max_new_tokens=new)
+    out = {}
+    for where in ("cpu", device):
+        params = init_params(model_defs(cfg), 0, where, cfg.pdtype())
+        toks = Engine(cfg, params, scfg, device=where).generate(prompts)
+        out[str(where)] = (params, toks)
+    (pc, tc), (pd, td) = out["cpu"], out[str(device)]
+    seq = torch.from_numpy(np.concatenate([prompts, tc], axis=1)).long()
+    with torch.inference_mode():
+        lc, _ = forward(pc, cfg, {"tokens": seq})
+        ld, _ = forward(pd, cfg, {"tokens": seq.to(device)})
+    ld = ld.cpu()
+    rms = float(torch.sqrt(torch.mean(lc.double() ** 2)))
+    err = float(torch.max(torch.abs(ld - lc)))
+    require(err <= SERVE_SMALL_TOL * rms,
+            f"serve small: card logits part from the CPU's by {err} > "
+            f"{SERVE_SMALL_TOL} x RMS {rms}")
+    top2 = torch.topk(lc[:, S - 1:S - 1 + new], 2, dim=-1).values
+    margin = (top2[..., 0] - top2[..., 1]).numpy()
+    near_ties = 0
+    for b in range(B):
+        diff = np.nonzero(tc[b] != td[b])[0]
+        if len(diff):
+            i = int(diff[0])
+            require(margin[b, i] <= 10 * SERVE_SMALL_TOL * rms,
+                    f"serve small: row {b} parts at step {i} with a top-2 "
+                    f"margin {margin[b, i]}")
+            near_ties += 1
+    row = dict(step="small", arch=cfg.name, B=B, S=S, new_tokens=new,
+               max_abs_err=err, logits_rms=rms, tol=SERVE_SMALL_TOL,
+               rows_equal=B - near_ties, rows_parted_at_near_tie=near_ties)
+    log("serve " + json.dumps(row))
+    return row
+
+
+def run_serving(device, sizes=None, log=print) -> dict:
+    """The serving phase: ``SERVE`` (or ``sizes`` over it) on ``device`` —
+    generation at full width, CAMEO's KV selection (its kernel launches
+    counted around ``prune_tree``), the float32 cache path, the reduced
+    config card against CPU.  On the card the held lanes' CPU selection
+    runs in a worker process started first."""
+    device = torch.device(device)
+    sz = dict(SERVE, **(sizes or {}))
+    t0 = time.perf_counter()
+    pool = None
+    if device.type == "cuda":
+        pool = concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_cpu_worker_init, initargs=(CPU_REF_THREADS,))
+        pool.submit(_cpu_worker_init, CPU_REF_THREADS)
+    try:
+        cfg = (get_reduced if sz["reduced"] else get_config)(sz["arch"])
+        if sz["attn_chunk"]:
+            cfg = dataclasses.replace(cfg, attn_chunk=sz["attn_chunk"])
+        t1 = time.perf_counter()
+        params = init_params(model_defs(cfg), 0, device, cfg.pdtype())
+        init_s = time.perf_counter() - t1
+        gen, prompts, toks = _serve_generate(device, cfg, params, sz, init_s,
+                                             log)
+        sel, kernels, bf16 = _serve_prune(device, cfg, params, prompts, toks,
+                                          sz, pool, log)
+        cache, held = _serve_cache_path(device, cfg, params, sz, bf16, log)
+        del params
+        small = _serve_small(device, sz["arch"], sz, log)
+    finally:
+        if pool is not None:
+            pool.shutdown(wait=True, cancel_futures=True)
+    if device.type == "cuda":
+        log("serve card " + nvidia_smi())
+    return dict(rows=[gen, sel, held, cache, small],
+                launches=sel["launches"],
+                kernels=kernels, seconds=time.perf_counter() - t0)
+
+
 def _scan_state(device, name: str, rounds: int, length=None):
     """A scan run on ``device`` stepped ``rounds`` rounds (one lane): the
     config, the round functions' arguments, p0, the carry and the next
@@ -2725,6 +3254,11 @@ def main() -> int:
         launches=bl["launches"], lossless=bl["lossless"],
         simpiece_host_s=bl["simpiece_host_s"], seconds=bl["seconds"],
         seconds_with_holds=bl["seconds_with_holds"])))
+    srv = run_serving(device)
+    seconds["serving"] = srv["seconds"]
+    for kname, c in srv["launches"].items():
+        report["launches"][kname] += c
+    report["kernels"] += srv["kernels"]
     print(nvidia_smi())
     t0 = time.perf_counter()
     print("lockstep " + json.dumps(scan_lockstep(device)))

@@ -7,7 +7,9 @@ server and ``serving.ts_service`` its deprecated service shim; ``core``
 holds the compressor, the series math and streaming ingest, ``kernels``
 the impact engine with one hand-written CUDA kernel per ported TPU kernel
 beside its plain PyTorch version, ``store`` the block store and ``obs``
-the telemetry registry.
+the telemetry registry; ``configs``, ``models``, ``serving.engine``,
+``serving.kv_prune`` and ``launch.serve`` serve the model zoo's attention
+architectures, with CAMEO selecting what the KV cache keeps.
 Importing the package does no CUDA work and builds nothing; kernels are
 compiled on their first launch (``kernels/_build.py``).
 """

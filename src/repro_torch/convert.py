@@ -12,7 +12,9 @@ way in and loses it on the way out.  The sequential carry
 in JAX's 10-tuple order ``(xr, alive, prev, nxt, imp, agg, y, dev, it,
 done)``, with ``agg`` the five per-lag aggregate rows (JAX's
 ``Aggregates``) or the packed ``[5, L]`` table.  This lets a test start the
-port from the reference's exact state.
+port from the reference's exact state.  The model zoo has weights:
+``params_from_numpy`` turns the JAX package's parameter tree into the
+port's module, checking every key and shape.
 """
 from __future__ import annotations
 
@@ -21,7 +23,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core.cameo import CameoConfig
+from repro_torch.core.cameo import CameoConfig, _device
 
 _BACKEND = {"pallas": "cuda"}
 
@@ -75,3 +77,48 @@ def sequential_carry_to_numpy(carry) -> tuple:
     """The sequential carry as numpy arrays (``agg`` as the ``[5, L]``
     table)."""
     return tuple(t.detach().cpu().numpy() for t in carry)
+
+
+def _numpy_leaf(a) -> np.ndarray:
+    a = np.asarray(a)
+    # ml_dtypes' bfloat16 (the JAX package's arrays) has no torch twin in
+    # numpy: widen it exactly to float32
+    return a.astype(np.float32) if a.dtype.name == "bfloat16" else a
+
+
+def params_from_numpy(tree: dict, cfg, device="cuda"):
+    """The port's parameter module (``models.params.ParamTree``) on
+    ``device`` (the card unless the caller passes ``"cpu"``; raises without
+    one) from the JAX package's parameters for ``cfg``, given as a
+    nested dict of numpy arrays (``jax.tree.map(np.asarray, params)``).
+
+    Every key and shape is checked against the port's ``model_defs(cfg)``:
+    a missing, extra or misshapen leaf raises ``ValueError``.  Values are
+    cast to ``cfg.pdtype()``."""
+    from repro_torch.models.model import model_defs
+    from repro_torch.models.params import ParamDef, ParamTree
+
+    device = _device(device)
+
+    def build(defs, node, path):
+        if isinstance(defs, ParamDef):
+            if isinstance(node, dict):
+                raise ValueError(f"{'.'.join(path)}: a subtree where the "
+                                 f"model has a parameter")
+            a = _numpy_leaf(node)
+            if tuple(a.shape) != tuple(defs.shape):
+                raise ValueError(f"{'.'.join(path)}: shape {tuple(a.shape)}, "
+                                 f"the model's is {tuple(defs.shape)}")
+            return torch.from_numpy(np.array(a, copy=True)).to(
+                device=device, dtype=cfg.pdtype())
+        if not isinstance(node, dict):
+            raise ValueError(f"{'.'.join(path)}: a leaf where the model has "
+                             f"a subtree")
+        if set(node) != set(defs):
+            raise ValueError(
+                f"{'.'.join(path) or '<root>'}: keys missing "
+                f"{sorted(set(defs) - set(node))}, unknown "
+                f"{sorted(set(node) - set(defs))}")
+        return {k: build(defs[k], node[k], path + (k,)) for k in defs}
+
+    return ParamTree(build(model_defs(cfg), tree, ()))

@@ -178,8 +178,10 @@ def segment_interp(xr: torch.Tensor, prev: torch.Tensor, nxt: torch.Tensor,
     ``[B, n]``); returns ``(vals [..., W], absj [..., W], start [...],
     span [...])``.  ``absj`` are the (clamped) absolute
     indices the values land on; positions at or beyond the span carry
-    values the caller must mask.  The arithmetic matches
-    :func:`interpolate_at` bit for bit.
+    values the caller must mask.  The line's multiply-add is rounded
+    once, as XLA compiles it inside the reference's ``segment_deltas``,
+    its strict compilation too (ROADMAP C19); :func:`interpolate_at`
+    rounds it twice, as XLA does there.
     """
     n = xr.shape[-1]
     dt = xr.dtype
@@ -194,7 +196,7 @@ def segment_interp(xr: torch.Tensor, prev: torch.Tensor, nxt: torch.Tensor,
     denom = torch.clamp_min((q - p).to(dt), 1.0)[..., None]
     t = (absj - pcl).to(dt) / denom
     xp = take(xr, pcl)
-    vals = xp + (take(xr, qcl) - xp) * t
+    vals = _ref.fma_rn(take(xr, qcl) - xp, t, xp)
     return vals, absj, start, span
 
 

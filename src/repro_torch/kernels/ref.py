@@ -185,6 +185,45 @@ def row_sum_xla(xw: torch.Tensor) -> torch.Tensor:
     return row_sum_xla(chain_sum(blocks))
 
 
+def _two_sum(a: torch.Tensor, b: torch.Tensor):
+    """``(s, e)`` with ``s = fl(a + b)`` and ``s + e = a + b`` exactly."""
+    s = a + b
+    bb = s - a
+    return s, (a - (s - bb)) + (b - bb)
+
+
+def _split(a: torch.Tensor):
+    """Veltkamp's split: ``a = hi + lo``, each half of the significand."""
+    c = a * (134217729.0 if a.dtype == torch.float64 else 4097.0)
+    hi = c - (c - a)
+    return hi, a - hi
+
+
+def fma_rn(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor):
+    """``a * b + c`` rounded once, on every device, in the operands' type
+    (float32 or float64): XLA contracts the reference's segment
+    interpolation into a fused multiply-add even in its strict compilation
+    (ROADMAP C19), and torch has no fused form that rounds once on the
+    CPU.  Boldo and Melquiond's emulation: the exact product (Dekker),
+    its sum with ``c`` (TwoSum), the two tails added with rounding to odd,
+    then the last sum rounded to nearest.  Assumes no overflow and no
+    subnormal products (the interpolation's operands)."""
+    p = a * b
+    ah, al = _split(a)
+    bh, bl = _split(b)
+    pe = ((ah * bh - p) + ah * bl + al * bh) + al * bl
+    th, tl = _two_sum(c, p)
+    v, ve = _two_sum(tl, pe)
+    # round to odd: an inexact sum with an even last bit steps to its
+    # other neighbour, toward the exact sum
+    ibits = {torch.float64: torch.int64, torch.float32: torch.int32}[v.dtype]
+    even = (v.view(ibits) & 1) == 0
+    inf = torch.full((), float("inf"), dtype=v.dtype, device=v.device)
+    v = torch.where((ve != 0) & even,
+                    torch.nextafter(v, torch.where(ve > 0, inf, -inf)), v)
+    return th + v
+
+
 def div_exact(x: torch.Tensor, k: int) -> torch.Tensor:
     """``x / k`` rounded once on every device.  On the card, a division by
     a Python scalar multiplies by the scalar's reciprocal (rounded twice);

@@ -1,0 +1,282 @@
+"""Decoder model over block patterns (port of ``repro.models.model``), the
+attention path: dense and windowed attention layers with dense MLPs.
+
+* ``model_defs``   — ParamDef tree (stacked block params).
+* ``forward``      — train-time logits (+ aux loss, 0 without MoE).
+* ``prefill``      — last-position logits + per-layer caches for serving.
+* ``decode_step``  — one-token step against the stacked caches.
+
+The reference scans the repeated block pattern (``jax.lax.scan`` over the
+stacked block params); the port walks the block axis in a Python loop,
+reading block ``i``'s parameters and caches as views ``[i]``.  Remat
+belongs to training and is not applied; the reference's sharding
+constraints are dropped (one device).  MoE and Mamba layers are later
+slices of the port: ``model_defs`` raises for them.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import LayerSpec, ModelConfig, layer_ctx
+from repro_torch.core.cameo import _device
+from repro_torch.models import attention as attn
+from repro_torch.models.layers import (
+    embed, embed_defs, mlp, mlp_defs, rmsnorm, rmsnorm_defs,
+    sinusoidal_positions, unembed, unembed_defs,
+)
+from repro_torch.models.params import as_tree, stack_defs
+
+
+# ---------------------------------------------------------------------------
+# definitions
+# ---------------------------------------------------------------------------
+
+def _check_layer(cfg: ModelConfig, ls: LayerSpec) -> None:
+    if ls.kind == "mamba":
+        raise NotImplementedError(
+            f"{cfg.name}: Mamba layers (repro.models.mamba) are a later slice "
+            f"of the port (ROADMAP A4: Mamba2 and the jamba hybrid)")
+    if ls.moe:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE layers (repro.models.moe, moe_a2a) are a later "
+            f"slice of the port (ROADMAP A4: MoE)")
+    if ls.kind != "attn":
+        raise ValueError(ls.kind)
+
+
+def layer_defs(cfg: ModelConfig, ls: LayerSpec):
+    _check_layer(cfg, ls)
+    d = {"pre_norm": rmsnorm_defs(cfg.d_model),
+         "attn": attn.attention_defs(
+             cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+             qk_norm=cfg.qk_norm, qkv_bias=cfg.qkv_bias)}
+    if cfg.sandwich_norm:
+        d["post_mix_norm"] = rmsnorm_defs(cfg.d_model)
+    if ls.mlp:
+        d["mlp_norm"] = rmsnorm_defs(cfg.d_model)
+        d["mlp"] = mlp_defs(cfg.d_model, cfg.d_ff, kind=cfg.mlp_kind)
+        if cfg.sandwich_norm:
+            d["post_mlp_norm"] = rmsnorm_defs(cfg.d_model)
+    return d
+
+
+def model_defs(cfg: ModelConfig):
+    block = {f"sub{j}": layer_defs(cfg, ls)
+             for j, ls in enumerate(cfg.pattern)}
+    defs = {
+        "embed": embed_defs(cfg.vocab, cfg.d_model),
+        "blocks": stack_defs(block, cfg.n_blocks),
+        "final_norm": rmsnorm_defs(cfg.d_model),
+    }
+    for j, ls in enumerate(cfg.remainder):
+        defs[f"rem{j}"] = layer_defs(cfg, ls)
+    if not cfg.tie_embeddings:
+        defs["lm_head"] = unembed_defs(cfg.d_model, cfg.vocab)
+    return defs
+
+
+def _index(tree, i: int):
+    """Block ``i``'s slice of a stacked tree (views)."""
+    if isinstance(tree, dict):
+        return {k: _index(v, i) for k, v in tree.items()}
+    if isinstance(tree, attn.KVCache):
+        return attn.KVCache(*(_index(a, i) for a in tree))
+    return tree[i]
+
+
+# ---------------------------------------------------------------------------
+# layer application
+# ---------------------------------------------------------------------------
+
+def _mlp_half(cfg, ls, p, h):
+    if not ls.mlp:
+        return h
+    y = mlp(p["mlp"], rmsnorm(p["mlp_norm"], h, cfg.norm_eps),
+            kind=cfg.mlp_kind)
+    if cfg.sandwich_norm:
+        y = rmsnorm(p["post_mlp_norm"], y, cfg.norm_eps)
+    return h + y
+
+
+def _apply_layer_full(cfg, ls, p, h, positions, want_cache: bool,
+                      max_len: Optional[int] = None):
+    """Full-sequence layer (train/prefill). Returns (h, cache|None)."""
+    ctx = layer_ctx(cfg, ls)
+    u = rmsnorm(p["pre_norm"], h, cfg.norm_eps)
+    mix, (k, v) = attn.attend_train(p["attn"], u, positions, ctx)
+    cache = None
+    if want_cache:
+        pos2 = positions if positions.dim() == 2 else positions[0]
+        cache = _kv_cache_from_prefill(ctx, k, v, pos2, cfg, max_len)
+    if cfg.sandwich_norm:
+        mix = rmsnorm(p["post_mix_norm"], mix, cfg.norm_eps)
+    return _mlp_half(cfg, ls, p, h + mix), cache
+
+
+def _kv_cache_from_prefill(ctx, k, v, positions, cfg, max_len=None):
+    """Place prefill K/V (already rotated) into a ring cache of the layer's
+    cache size (capacity ``max_len``), slotting position p at p % size."""
+    B, S = positions.shape
+    size = attn.kv_cache_size(ctx, max_len or S)
+    dev = k.device
+    if size >= S:
+        pad = size - S
+        kc = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        vc = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        pc = torch.nn.functional.pad(positions.to(torch.int32), (0, pad),
+                                     value=-1)
+    else:
+        # windowed/pruned layer: keep the last `size` tokens, ring-placed
+        k_tail = k[:, S - size:]
+        v_tail = v[:, S - size:]
+        pos_tail = positions[:, S - size:].to(torch.int32)
+        slots = torch.remainder(pos_tail, size).long()        # [B, size]
+        bidx = torch.arange(B, device=dev)[:, None].expand(B, size)
+        kc = torch.zeros_like(k_tail)
+        vc = torch.zeros_like(v_tail)
+        pc = torch.full((B, size), -1, dtype=torch.int32, device=dev)
+        kc[bidx, slots] = k_tail
+        vc[bidx, slots] = v_tail
+        pc[bidx, slots] = pos_tail
+    if attn._quantized(ctx):
+        kq, ks = attn._quantize_kv(kc)
+        vq, vs = attn._quantize_kv(vc)
+        return attn.KVCache(k=kq, v=vq, pos_ids=pc, k_scale=ks, v_scale=vs)
+    one = torch.ones((1,), device=dev)
+    return attn.KVCache(k=kc, v=vc, pos_ids=pc, k_scale=one, v_scale=one)
+
+
+def _apply_layer_decode(cfg, ls, p, h, pos: int, cache):
+    ctx = layer_ctx(cfg, ls)
+    u = rmsnorm(p["pre_norm"], h, cfg.norm_eps)
+    mix, cache = attn.attend_decode(p["attn"], u, pos, cache, ctx)
+    if cfg.sandwich_norm:
+        mix = rmsnorm(p["post_mix_norm"], mix, cfg.norm_eps)
+    return _mlp_half(cfg, ls, p, h + mix), cache
+
+
+# ---------------------------------------------------------------------------
+# embedding / head
+# ---------------------------------------------------------------------------
+
+def _embed_inputs(cfg, params, batch):
+    """Token (and stub frontend) embeddings in the activation dtype, and
+    the positions: ``batch["positions"]`` or ``arange(S)`` ([3, B, S] for
+    mrope)."""
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    dev = tokens.device
+    h = embed(params["embed"], tokens, scale_by_dim=cfg.scale_embed)
+    h = h.to(cfg.adtype())
+    if cfg.frontend == "vision_stub" and "patch_embeds" in batch:
+        pe = batch["patch_embeds"].to(cfg.adtype())      # [B, n_patches, d]
+        h = torch.cat([pe, h[:, pe.shape[1]:, :]], dim=1)
+    positions = batch.get("positions")
+    if positions is None:
+        base = torch.arange(S, dtype=torch.int32, device=dev).expand(B, S)
+        positions = base[None].expand(3, B, S) if cfg.pos == "mrope" else base
+    if cfg.pos == "sinusoidal":
+        h = h + sinusoidal_positions(positions, cfg.d_model).to(h.dtype)
+    return h, positions
+
+
+def _head(cfg, params, h):
+    h = rmsnorm(params["final_norm"], h, cfg.norm_eps)
+    tied = params["embed"]["table"] if cfg.tie_embeddings else None
+    return unembed(params.get("lm_head"), h, tied_table=tied)
+
+
+def _layers(cfg, params):
+    """(layer spec, its parameters, cache key, block index or None) of every
+    layer in order: the blocks' pattern for each block, then the
+    remainder."""
+    for i in range(cfg.n_blocks):
+        block = _index(params["blocks"], i)
+        for j, ls in enumerate(cfg.pattern):
+            yield ls, block[f"sub{j}"], f"sub{j}", i
+    for j, ls in enumerate(cfg.remainder):
+        yield ls, params[f"rem{j}"], f"rem{j}", None
+
+
+# ---------------------------------------------------------------------------
+# public entry points
+# ---------------------------------------------------------------------------
+
+def forward(params, cfg: ModelConfig, batch):
+    """Training forward: logits [B, S, V] f32 + scalar aux loss."""
+    params = as_tree(params)
+    h, positions = _embed_inputs(cfg, params, batch)
+    for ls, p, _, _ in _layers(cfg, params):
+        h, _ = _apply_layer_full(cfg, ls, p, h, positions, want_cache=False)
+    aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return _head(cfg, params, h), aux
+
+
+def _stack_caches(caches: list) -> attn.KVCache:
+    return attn.KVCache(*(torch.stack(f) for f in zip(*caches)))
+
+
+@torch.inference_mode()
+def prefill(params, cfg: ModelConfig, batch, max_len: Optional[int] = None):
+    """Prefill: last-position logits + caches (the blocks' stacked
+    ``[n_blocks, ...]`` under ``"blocks"``, the remainder's per layer).
+
+    ``max_len`` sets cache capacity for subsequent decode steps."""
+    params = as_tree(params)
+    h, positions = _embed_inputs(cfg, params, batch)
+    per_block = {f"sub{j}": [] for j in range(len(cfg.pattern))}
+    caches = {}
+    for ls, p, key, i in _layers(cfg, params):
+        h, c = _apply_layer_full(cfg, ls, p, h, positions, want_cache=True,
+                                 max_len=max_len)
+        if i is None:
+            caches[key] = c
+        else:
+            per_block[key].append(c)
+    caches = {"blocks": {k: _stack_caches(v) for k, v in per_block.items()},
+              **caches}
+    return _head(cfg, params, h[:, -1:, :]), caches
+
+
+@torch.inference_mode()
+def decode_step(params, cfg: ModelConfig, token: torch.Tensor, caches,
+                pos: int):
+    """One decode step: token [B, 1] int, ``pos`` a Python int.
+
+    Returns (logits [B, 1, V], caches), the caches updated in place."""
+    params = as_tree(params)
+    h = embed(params["embed"], token, scale_by_dim=cfg.scale_embed)
+    h = h.to(cfg.adtype())
+    if cfg.pos == "sinusoidal":
+        p1 = torch.full((token.shape[0], 1), pos, dtype=torch.int32,
+                        device=token.device)
+        h = h + sinusoidal_positions(p1, cfg.d_model).to(h.dtype)
+    for ls, p, key, i in _layers(cfg, params):
+        c = caches[key] if i is None else _index(caches["blocks"][key], i)
+        h, _ = _apply_layer_decode(cfg, ls, p, h, pos, c)
+    return _head(cfg, params, h), caches
+
+
+# ---------------------------------------------------------------------------
+# cache initialization
+# ---------------------------------------------------------------------------
+
+def init_caches(cfg: ModelConfig, B: int, max_len: int, dtype=None,
+                device="cuda"):
+    """Empty caches on ``device`` (the card unless the caller passes
+    ``"cpu"``; raises without one)."""
+    dtype = dtype or cfg.adtype()
+    device = _device(device)
+
+    def one(ls: LayerSpec):
+        _check_layer(cfg, ls)
+        return attn.init_kv_cache(layer_ctx(cfg, ls), B, max_len, dtype,
+                                  device)
+
+    caches = {"blocks": {f"sub{j}": _stack_caches([one(ls)] * cfg.n_blocks)
+                         for j, ls in enumerate(cfg.pattern)}}
+    for j, ls in enumerate(cfg.remainder):
+        caches[f"rem{j}"] = one(ls)
+    return caches

@@ -1,0 +1,145 @@
+"""Parameter definition trees (port of ``repro.models.params``): one
+declaration site for shape, dtype, logical axes and initializer.
+
+A model builds a nested dict of :class:`ParamDef`; from it come the real
+parameters (``init_params``: a :class:`ParamTree` module, one seeded draw
+per tree path) and the parameter count (``count_params``, shape arithmetic
+only).  The logical ``axes`` are kept for the model-zoo sharding rules of a
+later slice; one device uses none of them.
+
+The reference folds ``hash(path_element)`` into its key
+(``src/repro/models/params.py:53``); a ``str`` hash is salted per process,
+so its weights differ between processes.  The port seeds each leaf from
+``zlib.crc32`` of its dotted path instead, and draws on the CPU, so the
+same seed gives the same weights in every process and on every device.
+The draws are torch's, not ``jax.random``'s: carry the reference's weights
+across with ``convert.params_from_numpy``.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+import zlib
+from typing import Any, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.core.cameo import _device
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    shape: Tuple[int, ...]
+    axes: Tuple[Any, ...]                 # logical axes, len == len(shape)
+    dtype: torch.dtype = torch.float32
+    init: str = "linear"                  # linear | embed | zeros | ones
+    fan_axis: int = 0                     # fan-in dim for "linear"
+    scale: float = 1.0
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} and axes {self.axes} differ "
+                             f"in rank")
+
+
+def _is_def(x):
+    return isinstance(x, ParamDef)
+
+
+def _map_defs(fn, defs, path=()):
+    if _is_def(defs):
+        return fn(path, defs)
+    return {k: _map_defs(fn, v, path + (k,)) for k, v in defs.items()}
+
+
+def path_seed(seed: int, path) -> int:
+    """The draw's seed of the leaf at ``path``: ``zlib.crc32`` of the seed
+    and the dotted path (stable across processes, unlike ``hash``).  It is
+    32 bits wide because torch's CPU generator keeps only a seed's low 32
+    bits: a seed placed above them would be dropped."""
+    return zlib.crc32(f"{int(seed)}/{'.'.join(path)}".encode())
+
+
+def _draw(path, d: ParamDef, seed: int) -> torch.Tensor:
+    """One leaf's float32 values on the CPU, by the reference's rules."""
+    if d.init == "zeros":
+        return torch.zeros(d.shape)
+    if d.init == "ones":
+        return torch.ones(d.shape)
+    gen = torch.Generator().manual_seed(path_seed(seed, path))
+    x = torch.randn(d.shape, generator=gen)
+    if d.init == "embed":
+        return x * d.scale
+    if d.init != "linear":
+        raise ValueError(f"unknown init {d.init!r}")
+    return x * (d.scale / math.sqrt(max(d.shape[d.fan_axis], 1)))
+
+
+class ParamTree(nn.Module):
+    """A parameter tree as modules: every dict of the definition tree is a
+    submodule, every leaf a (frozen) ``nn.Parameter``, so ``state_dict()``
+    keys are the reference's tree paths joined by ``.``
+    (``blocks.sub0.attn.q``)."""
+
+    def __init__(self, tensors: dict):
+        super().__init__()
+        for k, v in tensors.items():
+            if isinstance(v, dict):
+                self.add_module(k, ParamTree(v))
+            else:
+                self.register_parameter(
+                    k, nn.Parameter(v, requires_grad=False))
+
+    def tree(self) -> dict:
+        """The nested dict of tensors the model functions read."""
+        out = {k: p for k, p in self._parameters.items()}
+        out.update({k: m.tree() for k, m in self._modules.items()})
+        return out
+
+
+def as_tree(params) -> dict:
+    """``params`` as a nested dict of tensors (a :class:`ParamTree` or
+    already a dict)."""
+    return params.tree() if isinstance(params, ParamTree) else params
+
+
+def init_params(defs, seed: int = 0, device="cuda",
+                param_dtype=None) -> ParamTree:
+    """Materialize parameters on ``device`` (the card unless the caller
+    passes ``"cpu"``; raises without one) in ``param_dtype`` (default each
+    def's dtype): normal x scale / sqrt(fan_in) ("linear"), normal x scale
+    ("embed"), zeros or ones, each leaf drawn in float32 on the CPU from
+    its own generator (:func:`path_seed`) and then cast and moved."""
+
+    device = _device(device)
+
+    def one(path, d: ParamDef):
+        dtype = param_dtype or d.dtype
+        return _draw(path, d, seed).to(device=device, dtype=dtype)
+
+    return ParamTree(_map_defs(one, defs))
+
+
+def count_params(defs) -> int:
+    total = 0
+
+    def one(path, d: ParamDef):
+        nonlocal total
+        total += math.prod(d.shape)
+        return None
+
+    _map_defs(one, defs)
+    return total
+
+
+def stack_defs(defs, n: int, axis_name=None):
+    """Add a leading layer axis of size n to every def (the stacked block
+    parameters)."""
+
+    def one(path, d: ParamDef):
+        return ParamDef(shape=(n,) + d.shape, axes=(axis_name,) + d.axes,
+                        dtype=d.dtype, init=d.init,
+                        fan_axis=d.fan_axis + 1, scale=d.scale)
+
+    return _map_defs(one, defs)

@@ -80,6 +80,22 @@ def _profiled_sequential(device, name: str, length: int, pops: int):
     return prof, wall, int(carry[8]) - it0
 
 
+def device_times(prof) -> tuple:
+    """A profile's ``key_averages()``, their device-time sort key, and the
+    card's µs and launches by kernel name."""
+    events = prof.key_averages()
+    sort_key = ("self_device_time_total"
+                if hasattr(events[0], "self_device_time_total")
+                else "self_cuda_time_total")
+    dev_us, dev_n = {}, {}
+    for ev in events:
+        t = float(getattr(ev, sort_key, 0.0) or 0.0)
+        if t and ev.device_type == torch.autograd.DeviceType.CUDA:
+            dev_us[ev.key] = dev_us.get(ev.key, 0.0) + t
+            dev_n[ev.key] = dev_n.get(ev.key, 0) + int(ev.count)
+    return events, sort_key, dev_us, dev_n
+
+
 def profile_main(device, name: str = "uk_elec", path: str = "rounds",
                  length=None, pops: int = 256) -> dict:
     """torch.profiler breakdown of one main-path run (rounds and scan: a
@@ -131,16 +147,7 @@ def profile_main(device, name: str = "uk_elec", path: str = "rounds",
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
         iters = int(res.iters)
-    events = prof.key_averages()
-    sort_key = ("self_device_time_total"
-                if hasattr(events[0], "self_device_time_total")
-                else "self_cuda_time_total")
-    dev_us, dev_n = {}, {}
-    for ev in events:
-        t = float(getattr(ev, sort_key, 0.0) or 0.0)
-        if t and ev.device_type == torch.autograd.DeviceType.CUDA:
-            dev_us[ev.key] = dev_us.get(ev.key, 0.0) + t
-            dev_n[ev.key] = dev_n.get(ev.key, 0) + int(ev.count)
+    events, sort_key, dev_us, dev_n = device_times(prof)
     busy = sum(dev_us.values()) / 1e6
     per = max(iters, 1)
     hand = {}

@@ -70,10 +70,7 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
 import chip_smoke  # noqa: E402
-from repro_torch.baselines import functional as _functional  # noqa: E402
-from repro_torch.core import cameo as _cameo  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
-from repro_torch.kernels import ops as _ops  # noqa: E402
 from repro_torch.kernels import ref as _ref  # noqa: E402
 
 STEMS = ("acf_window_impact", "window_rows", "acf_impact", "lag_dot",
@@ -300,23 +297,6 @@ def _flat(outs) -> torch.Tensor:
 RUNS = [(name, path, chip_smoke.SEQ_LENGTHS[name] if path == "sequential"
          else None) for path in chip_smoke.PATHS
         for name in chip_smoke.DATASETS] + [("uk_elec", "sequential", None)]
-# each kernel's wrapper as its callers look it up: [(module, name)]
-CALLERS = {"acf_window_impact": [(_ops, "acf_window_impact_cuda")],
-           "window_rows": [(chip_smoke._fused, "window_rows_cuda")],
-           "acf_impact": [(_cameo, "acf_impact_cuda"),
-                          (_ops, "acf_impact_cuda")],
-           "lag_dot": [(_ops, "lag_dot_cuda")],
-           "prefix_devs": [(chip_smoke._fused, "prefix_devs_cuda")],
-           "prefix_sum": [(_ops, "prefix_sum_cuda")],
-           "dense_sxx": [(_ops, "dense_sxx_cuda")],
-           # the baselines' scans: no main-path run launches them
-           "segment_scan": [(_functional, "segment_scan_cuda")]}
-
-
-def _clone(v):
-    return v.clone() if isinstance(v, torch.Tensor) else v
-
-
 def _one_series(kname: str, a: tuple, kw: dict, res):
     """A one-lane launch of the rounds path (``[1, ...]`` operands, as
     ``compress_rounds`` makes them) as the same launch on one series, so
@@ -330,55 +310,30 @@ def _one_series(kname: str, a: tuple, kw: dict, res):
             res[0])
 
 
-# kernel -> the recorder standing in for its wrapper during a run
-recording_of: dict = {}
-
-
 def record_runs(device, stems) -> list:
     """The seven main-path runs on the card, each launch of the kernels
-    recorded: (run, kernel, launches) with each launch a dict of its
-    arguments, keywords, output and, for the window kernels, its interior
-    count."""
+    recorded (``chip_smoke.record_launches``): (run, kernel, launches) with
+    each launch a dict of its arguments, keywords, output and, for the
+    window kernels, its interior count."""
     out = []
     for name, path, length in RUNS:
-        got = {k: [] for k in stems}
-        saved = []
-        for kname in stems:
-            wrapper = chip_smoke.WRAPPERS[kname]
-
-            def recording(*a, _w=wrapper, _k=kname, **kw):
-                res = _w(*a, **kw)
-                # the count lands on the original wrapper or, where its
-                # module names it by its own attribute, on this recorder
-                _w.launches = recording_of[_k].launches = max(
-                    _w.launches, recording_of[_k].launches)
-                out = res
-                a, kw, res = _one_series(_k, a, kw, res)
-                rec = dict(args=tuple(_clone(t) for t in a),
-                           kw={k: _clone(v) for k, v in kw.items()},
-                           out=res.clone())
-                if _k in WINDOW:
+        with chip_smoke.record_launches(stems) as got:
+            row = chip_smoke.phase_main(device, name, path, length,
+                                        cpu_check=False)
+        for kname, launches in got.items():
+            if not launches:
+                continue
+            calls = []
+            for a, kw, res in launches:
+                a, kw, res = _one_series(kname, a, kw, res)
+                rec = dict(args=a, kw=kw, out=res)
+                if kname in WINDOW:
                     starts, W = a[2], a[1].shape[1]
-                    ny = kw["ny"] if _k == "acf_window_impact" else a[4]
+                    ny = kw["ny"] if kname == "acf_window_impact" else a[4]
                     rec["interior"] = _ref.interior_windows(
                         starts, W, kw["L"], ny).sum()
                     rec["n"] = starts.numel()
-                got[_k].append(rec)
-                return out
-            recording.launches = wrapper.launches
-            recording_of[kname] = recording
-            for mod, attr in CALLERS[kname]:
-                saved.append((mod, attr, getattr(mod, attr)))
-                setattr(mod, attr, recording)
-        try:
-            row = chip_smoke.phase_main(device, name, path, length,
-                                        cpu_check=False)
-        finally:
-            for mod, attr, fn in saved:
-                setattr(mod, attr, fn)
-        for kname, calls in got.items():
-            if not calls:
-                continue
+                calls.append(rec)
             if kname in WINDOW:
                 inter = torch.stack([c["interior"] for c in calls]).tolist()
                 for c, i in zip(calls, inter):
