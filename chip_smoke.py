@@ -27,7 +27,10 @@ Phases, each of which fails the run (non-zero exit) on a wrong result:
    round body's hook, with K, the ok count and the interior count); the
    two Eq. 9 window kernels are held exactly too, also on a
    boundary-heavy case each (every start within L + W of either end,
-   with its interior count); prefix_sum (the Eq. 7 moments' and the dense
+   with its interior count); cell_sum (the Eq. 9 windows' cells in XLA's
+   segment-sum order, C20) at aus_elec's tiers B and C (kappa 48, float64),
+   on 4 lanes and in float32, held exactly and timed beside an
+   ``index_add_``; prefix_sum (the Eq. 7 moments' and the dense
    update's prefix sums: one row, the pair of rows the main path launches,
    and pairs of 1, 17, 4,097 and 65,537 values) held exactly to its plain
    version on the CPU (XLA's cumsum order, jnp.cumsum's bits) and timed
@@ -143,7 +146,17 @@ Phases, each of which fails the run (non-zero exit) on a wrong result:
    tokens within 1e-3 x RMS; qwen3-0.6b reduced from the same seed on the
    card and the CPU, logits within 1e-4 x RMS and greedy tokens equal but
    at near-ties; ``serve {...}`` lines and the card's name and power
-   limit;
+   limit.  Then the MoE and Mamba2 phase (``run_serving_zoo``):
+   qwen3-moe-235b-a22b at its published width cut to 4 layers (weights
+   drawn on the card from seed 0), generation as above with each layer's
+   dropped assignments at prefill, its KV selection (32 lanes) held as
+   above, a float32 one-layer cache path at capacity factor 8 (16 decode
+   steps after a 1,024-token prefill against ``forward``, 1e-3 x RMS),
+   ``moe_apply_a2a`` on NCCL at world size 1 against the scatter path
+   (1e-3 x RMS); mamba2-2.7b whole, generation and a float32 cache path
+   (a 1,000-token prefill ending inside a chunk); the reduced qwen3-moe,
+   kimi-k2, mamba2 and jamba configs card against CPU (1e-4 x RMS; routes
+   equal but at near-ties, counted);
 5. the lock-step check — a scan round on uk_elec from one carry on the
    card: the greedy branch with the prefix_devs kernel and with its plain
    version must take the same candidates; then the seconds of each phase
@@ -196,6 +209,7 @@ from repro_torch.data.synthetic import (dataset_cameo_kwargs,  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import acf_impact as _acf_impact  # noqa: E402
 from repro_torch.kernels import acf_window_impact as _awi  # noqa: E402
+from repro_torch.kernels import cell_sum as _cell_sum  # noqa: E402
 from repro_torch.kernels import dense_sxx as _dense_sxx  # noqa: E402
 from repro_torch.kernels import fused_round as _fused  # noqa: E402
 from repro_torch.kernels import lag_dot as _lag_dot  # noqa: E402
@@ -203,9 +217,12 @@ from repro_torch.kernels import ops as _ops  # noqa: E402
 from repro_torch.kernels import prefix_sum as _prefix_sum  # noqa: E402
 from repro_torch.kernels import ref as _ref  # noqa: E402
 from repro_torch.kernels import segment_scan as _segscan  # noqa: E402
+from repro_torch.models import moe as _moe  # noqa: E402
+from repro_torch.models import moe_a2a as _moe_a2a  # noqa: E402
 from repro_torch.models.attention import KVCache  # noqa: E402
-from repro_torch.models.model import (decode_step, forward,  # noqa: E402
-                                      model_defs, prefill)
+from repro_torch.configs.base import layer_ctx  # noqa: E402
+from repro_torch.models.model import (_index, decode_step,  # noqa: E402
+                                      forward, model_defs, prefill)
 from repro_torch.models.params import init_params  # noqa: E402
 from repro_torch.serving import kv_prune  # noqa: E402
 from repro_torch.serving.engine import Engine, ServeConfig  # noqa: E402
@@ -223,7 +240,8 @@ WRAPPERS = {"lag_dot": _lag_dot.lag_dot_cuda,
             "prefix_devs": _fused.prefix_devs_cuda,
             "prefix_sum": _prefix_sum.prefix_sum_cuda,
             "dense_sxx": _dense_sxx.dense_sxx_cuda,
-            "segment_scan": _segscan.segment_scan_cuda}
+            "segment_scan": _segscan.segment_scan_cuda,
+            "cell_sum": _cell_sum.cell_sum_cuda}
 # each kernel's wrapper as its callers look it up: (module, attribute)
 CALLERS = {"acf_window_impact": ((_ops, "acf_window_impact_cuda"),),
            "window_rows": ((_fused, "window_rows_cuda"),),
@@ -233,7 +251,8 @@ CALLERS = {"acf_window_impact": ((_ops, "acf_window_impact_cuda"),),
            "prefix_devs": ((_fused, "prefix_devs_cuda"),),
            "prefix_sum": ((_ops, "prefix_sum_cuda"),),
            "dense_sxx": ((_ops, "dense_sxx_cuda"),),
-           "segment_scan": ((_functional, "segment_scan_cuda"),)}
+           "segment_scan": ((_functional, "segment_scan_cuda"),),
+           "cell_sum": ((_ops, "cell_sum_cuda"),)}
 SOURCES = {"lag_dot": "src/repro_torch/kernels/csrc/lag_dot.cu",
            "acf_impact": "src/repro_torch/kernels/csrc/acf_impact.cu",
            "window_rows": "src/repro_torch/kernels/csrc/window_rows.cu",
@@ -242,7 +261,8 @@ SOURCES = {"lag_dot": "src/repro_torch/kernels/csrc/lag_dot.cu",
            "prefix_devs": "src/repro_torch/kernels/csrc/prefix_devs.cu",
            "prefix_sum": "src/repro_torch/kernels/csrc/prefix_sum.cu",
            "dense_sxx": "src/repro_torch/kernels/csrc/dense_sxx.cu",
-           "segment_scan": "src/repro_torch/kernels/csrc/segment_scan.cu"}
+           "segment_scan": "src/repro_torch/kernels/csrc/segment_scan.cu",
+           "cell_sum": "src/repro_torch/kernels/csrc/cell_sum.cu"}
 REPLACES = {"lag_dot": "src/repro/kernels/lag_dot.py:42",
             "acf_impact": "src/repro/kernels/acf_impact.py:93",
             "window_rows": "src/repro/kernels/fused_round.py:276",
@@ -256,7 +276,9 @@ REPLACES = {"lag_dot": "src/repro/kernels/lag_dot.py:42",
             "dense_sxx": "src/repro/core/aggregates.py:93",
             # XLA's jax.lax.scan of PMC (:36) and of Swing (:81), no Pallas
             # kernel
-            "segment_scan": "src/repro/baselines/functional.py:36"}
+            "segment_scan": "src/repro/baselines/functional.py:36",
+            # XLA's jax.ops.segment_sum in x_window_to_y, no Pallas kernel
+            "cell_sum": "src/repro/kernels/ops.py:256"}
 # Each output is held to its plain version elementwise: |got - want| <=
 # rtol |want| + floor max|want|.  The floor scales with the output, so an
 # output of the wrong scale (zeros, say) fails whatever the inputs' size.
@@ -271,6 +293,11 @@ TOL = {"lag_dot": (0.0, 0.0), "acf_impact": (0.0, 0.0),
        "window_rows": (0.0, 0.0), "acf_window_impact": (0.0, 0.0),
        "prefix_devs": (0.0, 0.0), "prefix_sum": (0.0, 0.0),
        "dense_sxx": (0.0, 0.0), "segment_scan": (0.0, 0.0),
+       "cell_sum": (0.0, 0.0),
+       # cell_sum's library yardstick (index_add_, atomics in the card's
+       # order) sums a cell's at most kappa terms in another order
+       "cell_sum_index_add": (1e-12, 1e-12),
+       "cell_sum_index_add_f32": (1e-5, 1e-5),
        # the library yardsticks (conv1d) of lag_dot and dense_sxx sum in
        # their own order (float64; dense_sxx's float32 launches of the KV
        # selection in float32)
@@ -658,6 +685,8 @@ def phase_kernels(device, name: str, length=None) -> list:
     out += [prefix_case(device, c["label"], c["args"], c["eps"], L,
                         mixed=c["mixed"])
             for c in prefix_cases(device, name, length)]
+    if cfg.kappa > 1:
+        out += cell_sum_entries(device, name, length)
     for r in out:
         r["dataset"] = name
     if name == DATASETS[0]:
@@ -746,6 +775,79 @@ def window_rows_entry(device, name: str, c: dict) -> dict:
         plain_ms=device_ms(lambda: _fused.window_rows_plain(
             *args, L=L, measure="mae"), device),
         library_ms=None, bound_ms=bnd, bound_by=by)
+
+
+def cell_sum_bound(R: int, W: int, Wy: int, dtype):
+    """Bytes: the windows and their starts read once, the cells written;
+    operations: W adds and Wy divisions a window."""
+    it = _item(dtype)
+    return bound_ms(R * (W * it + 4 + Wy * it), R * (W + Wy), _peak(dtype))
+
+
+def cell_sum_entries(device, name: str, length=None) -> list:
+    """cell_sum against its plain version at tolerance 0 on ``name``'s
+    rounds shapes (tier B's and tier C's capacities, x windows of
+    ``_TIER_SMALL_W`` and ``window`` points in the run's float64; one entry
+    for the round's two launches), the tier C shape on ``KERNEL_LANES``
+    lanes and in float32; timed beside its plain version and an
+    ``index_add_`` (with its zeros and the division), held within its
+    tolerance."""
+    cfg, _, nb, ny, *_ = kernel_inputs(device, name, length)
+    kap = cfg.kappa
+    rng = np.random.default_rng(8)
+    KB, KC = min(nb, max(24, nb // 24)), min(nb, max(16, nb // 48))
+    lanes = KERNEL_LANES.get(name, 1)
+    cases = (("tier B", (KB,), cameo._TIER_SMALL_W, torch.float64),
+             ("tier C", (KC,), cfg.window, torch.float64),
+             ("tier C lanes", (lanes, KC), cfg.window, torch.float64),
+             ("tier C float32", (KC,), cfg.window, torch.float32))
+    rows = []
+    for label, lead, W, dt in cases:
+        x = torch.from_numpy(rng.standard_normal(lead + (W,))).to(
+            device=device, dtype=dt)
+        x[..., W // 2:] *= torch.from_numpy(
+            rng.random(lead + (W - W // 2,)) < 0.5).to(device)
+        st = torch.from_numpy(rng.integers(1, nb - W, lead).astype(
+            np.int32)).to(device)
+        Wy = W // kap + 2
+        got = _cell_sum.cell_sum_cuda(x, st, kap)
+        want = _cell_sum.cell_sum_plain(x, st, kap)
+        what = f"{name} cell_sum {label} (kappa={kap}, W={W})"
+        err = check_close(what, "cell_sum", got, want)
+        require(_same_bits(got, want), f"{what}: not the plain version's bits")
+        R = int(np.prod(lead))
+        seg = ((st[..., None].long() + torch.arange(W, device=device))
+               // kap - (st.long() // kap)[..., None])
+        idx = (torch.arange(R, device=device).reshape(lead)[..., None]
+               * Wy + seg).reshape(-1)
+        src = x.reshape(-1)
+
+        def library():
+            out = torch.zeros(R * Wy, dtype=dt, device=device)
+            return _ref.div_exact(out.index_add_(0, idx, src), kap)
+        if device.type == "cuda":
+            check_close(f"{what} index_add_ yardstick",
+                        "cell_sum_index_add" if dt == torch.float64
+                        else "cell_sum_index_add_f32",
+                        library().reshape(want.shape), want)
+        shape = (f"{label}: {'x'.join(map(str, lead))} windows W={W} "
+                 f"Wy={Wy} kappa={kap} {str(dt)[6:]}")
+        bnd, by = cell_sum_bound(R, W, Wy, dt)
+        rows.append(dict(
+            name="cell_sum", shape=shape, max_abs_err=err,
+            ms=device_ms(lambda: _cell_sum.cell_sum_cuda(x, st, kap), device),
+            plain_ms=device_ms(lambda: _cell_sum.cell_sum_plain(x, st, kap),
+                               device, reps=3, inner=5),
+            library_ms=device_ms(library, device), bound_ms=bnd,
+            bound_by=by))
+    # the round's two launches (tiers B and C) as one entry, first
+    main = dict(rows[0])
+    main["shape"] = rows[0]["shape"] + " + " + rows[1]["shape"]
+    for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+        vals = [r[key] for r in rows[:2]]
+        main[key] = None if None in vals else sum(vals)
+    main["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    return [main] + rows[2:]
 
 
 def window_impact_cases(device, name: str, length=None) -> list:
@@ -1186,8 +1288,9 @@ def check_guarantee(what: str, x: np.ndarray, xr: np.ndarray,
 
 def _path_cfg(name: str, path: str):
     over, kernels, held = PATHS[path]
-    return cameo.CameoConfig(eps=EPS, **dataset_cameo_kwargs(name),
-                             **over), kernels, held
+    cfg = cameo.CameoConfig(eps=EPS, **dataset_cameo_kwargs(name), **over)
+    # the Eq. 9 windows' cell sums run on every path where kappa > 1
+    return cfg, kernels + (("cell_sum",) if cfg.kappa > 1 else ()), held
 
 
 def first_differing_pop(device, cfg, x: np.ndarray) -> dict:
@@ -2561,7 +2664,9 @@ def _serve_generate(device, cfg, params, sz, init_s, log) -> tuple:
     """Item 1: a warm and a timed greedy ``Engine.generate``; the tokens of
     both calls equal and in range.  Returns (row, prompts, tokens)."""
     B, S, new = sz["B"], sz["S"], sz["new"]
-    require(cfg.attn_chunk is not None and S > cfg.attn_chunk,
+    attends = any(ls.kind == "attn" for ls in cfg.all_layers())
+    require(not attends or (cfg.attn_chunk is not None
+                            and S > cfg.attn_chunk),
             f"serve: S = {S} does not take the chunked prefill "
             f"(attn_chunk {cfg.attn_chunk})")
     eng = Engine(cfg, params, ServeConfig(max_new_tokens=new), device=device)
@@ -2581,7 +2686,7 @@ def _serve_generate(device, cfg, params, sz, init_s, log) -> tuple:
     st = eng.stats
     row = dict(
         step="generate", arch=cfg.name, dtype=cfg.param_dtype, B=B, S=S,
-        new_tokens=new, chunked_prefill=True, deterministic=True,
+        new_tokens=new, chunked_prefill=attends, deterministic=True,
         prefill_s=st["prefill_s"],
         decode_ms_per_token=1e3 * st["decode_s"] / max(st["decode_steps"], 1),
         tokens_per_s=B * new / wall, wall_s=wall, init_s=init_s,
@@ -2857,8 +2962,17 @@ def _serve_cache_path(device, cfg, params, sz, bf16, log) -> tuple:
         ref = ref[:, S - 1:S + 1].clone()
     held = _hold_bf16(bf16, ref, log)
     del ref
+    return _decode_vs_forward(device, cfg32, params, B, S, P, steps,
+                              log), held
+
+
+def _decode_vs_forward(device, cfg32, params, B: int, S: int, P: int,
+                       steps: int, log) -> dict:
+    """In float32: ``steps`` teacher-forced decode steps after a ``P``-token
+    prefill equal ``forward``'s logits over ``S`` tokens at the same
+    positions within ``SERVE_CACHE_TOL`` x RMS."""
     toks = torch.from_numpy(np.random.default_rng(1).integers(
-        0, cfg.vocab, size=(B, S))).long().to(device)
+        0, cfg32.vocab, size=(B, S))).long().to(device)
     t0 = time.perf_counter()
     with torch.inference_mode():
         full, _ = forward(params, cfg32, {"tokens": toks})
@@ -2875,21 +2989,65 @@ def _serve_cache_path(device, cfg, params, sz, bf16, log) -> tuple:
     _sync(device)
     rms = float(torch.sqrt(torch.mean(want.double() ** 2)))
     err = float(torch.max(torch.abs(got - want)))
-    require(err <= SERVE_CACHE_TOL * rms,
-            f"serve: decode logits part from forward's by {err} > "
-            f"{SERVE_CACHE_TOL} x RMS {rms}")
-    row = dict(step="cache_path", dtype="float32", B=B, forward_S=S,
-               prefill_S=P, decode_steps=steps, max_abs_err=err,
-               logits_rms=rms, tol=SERVE_CACHE_TOL,
-               seconds=time.perf_counter() - t0)
+    require(bool(torch.isfinite(got).all()) and err <= SERVE_CACHE_TOL * rms,
+            f"serve {cfg32.name}: decode logits part from forward's by {err} "
+            f"> {SERVE_CACHE_TOL} x RMS {rms}")
+    row = dict(step="cache_path", arch=cfg32.name, layers=cfg32.n_layers,
+               dtype="float32", B=B, forward_S=S, prefill_S=P,
+               decode_steps=steps, max_abs_err=err, logits_rms=rms,
+               tol=SERVE_CACHE_TOL, seconds=time.perf_counter() - t0)
     log("serve " + json.dumps(row))
-    return row, held
+    return row
+
+
+@contextlib.contextmanager
+def record_routes():
+    """Within the block, every MoE router call (``models.moe.route``)
+    appends its probabilities and expert ids, on the host, to the yielded
+    list."""
+    got, orig = [], _moe.route
+
+    def recording(p, x, k):
+        out = orig(p, x, k)
+        got.append((out[1].detach().float().cpu(), out[3].cpu()))
+        return out
+    _moe.route = recording
+    try:
+        yield got
+    finally:
+        _moe.route = orig
+
+
+def _route_parts(card: list, cpu: list, k: int, S: int):
+    """The tokens whose top-k expert sets differ between the card's routes
+    and the CPU's (layer by layer, ``[B, S, E]`` probabilities and
+    ``[B, S, k]`` ids), each required to be a near-tie on the CPU (its
+    k-th and (k+1)-th probabilities within ``ROUTE_TIE``).  Returns (parts,
+    near-tie tokens, each row's first parted position or S)."""
+    parts = ties = 0
+    first = None
+    for (pd, ed), (pc, ec) in zip(card, cpu):
+        top = torch.sort(pc, dim=-1, descending=True).values
+        tie = (top[..., k - 1] - top[..., k]) <= ROUTE_TIE
+        differ = torch.any(torch.sort(ed, -1).values
+                           != torch.sort(ec, -1).values, dim=-1)
+        require(not bool(torch.any(differ & ~tie)),
+                f"serve small: {int(torch.sum(differ & ~tie))} tokens route "
+                f"to other experts on the card outside a near-tie")
+        parts += int(differ.sum())
+        ties += int(tie.sum())
+        pos = torch.where(differ, torch.arange(differ.shape[1]), S)
+        f = pos.min(dim=1).values
+        first = f if first is None else torch.minimum(first, f)
+    return parts, ties, first
 
 
 def _serve_small(device, arch: str, sz, log) -> dict:
     """Item 4: the reduced config (float32) from the same seed on the card
     and on the CPU: logits of the teacher-forced sequence within tol x RMS,
-    greedy tokens equal but where the CPU's top-2 margin is a near-tie."""
+    greedy tokens equal but where the CPU's top-2 margin is a near-tie.  An
+    MoE config's routes equal the CPU's but at near-ties (counted); a row's
+    logits are held before its first parted route."""
     cfg = get_reduced(arch)
     B, S, new = sz["small_B"], sz["small_S"], sz["small_new"]
     prompts = np.random.default_rng(2).integers(
@@ -2903,11 +3061,19 @@ def _serve_small(device, arch: str, sz, log) -> dict:
     (pc, tc), (pd, td) = out["cpu"], out[str(device)]
     seq = torch.from_numpy(np.concatenate([prompts, tc], axis=1)).long()
     with torch.inference_mode():
-        lc, _ = forward(pc, cfg, {"tokens": seq})
-        ld, _ = forward(pd, cfg, {"tokens": seq.to(device)})
+        with record_routes() as rc:
+            lc, _ = forward(pc, cfg, {"tokens": seq})
+        with record_routes() as rd:
+            ld, _ = forward(pd, cfg, {"tokens": seq.to(device)})
     ld = ld.cpu()
+    parts, ties, first = _route_parts(rd, rc, cfg.top_k, seq.shape[1]) \
+        if cfg.n_experts else (0, 0, None)
     rms = float(torch.sqrt(torch.mean(lc.double() ** 2)))
-    err = float(torch.max(torch.abs(ld - lc)))
+    diff = torch.abs(ld - lc)
+    if first is not None:
+        diff = diff * (torch.arange(seq.shape[1])[None, :, None]
+                       < first[:, None, None])
+    err = float(torch.max(diff))
     require(err <= SERVE_SMALL_TOL * rms,
             f"serve small: card logits part from the CPU's by {err} > "
             f"{SERVE_SMALL_TOL} x RMS {rms}")
@@ -2925,6 +3091,9 @@ def _serve_small(device, arch: str, sz, log) -> dict:
     row = dict(step="small", arch=cfg.name, B=B, S=S, new_tokens=new,
                max_abs_err=err, logits_rms=rms, tol=SERVE_SMALL_TOL,
                rows_equal=B - near_ties, rows_parted_at_near_tie=near_ties)
+    if cfg.n_experts:
+        row.update(route_near_tie_tokens=ties, routes_parted=parts,
+                   route_tie=ROUTE_TIE)
     log("serve " + json.dumps(row))
     return row
 
@@ -2966,6 +3135,220 @@ def run_serving(device, sizes=None, log=print) -> dict:
     return dict(rows=[gen, sel, held, cache, small],
                 launches=sel["launches"],
                 kernels=kernels, seconds=time.perf_counter() - t0)
+
+
+# the MoE and Mamba2 families (``run_serving_zoo``): qwen3-moe-235b-a22b at
+# its published width cut to ``layers`` layers (weights drawn on the card)
+# for generation and the KV selection as ``SERVE``; its float32 cache path
+# at one layer with capacity factor 8 (no drops); ``moe_apply_a2a`` against
+# the scatter path on NCCL at world size 1 (``a2a_B`` x ``a2a_S`` tokens);
+# mamba2-2.7b whole for generation and its float32 cache path (a prefill
+# that ends inside a chunk); the reduced configs card against CPU
+SERVE_MOE = dict(arch="qwen3-moe-235b-a22b", layers=4, attn_chunk=None,
+                 B=8, S=2048, new=32,
+                 keep=512, lags=16, held_layers=(0, -1), pruned_steps=8,
+                 cache_B=2, cache_layers=1, cache_cf=8.0, cache_prefill=1024,
+                 cache_steps=16, a2a_B=2, a2a_S=512)
+SERVE_MAMBA = dict(arch="mamba2-2.7b", layers=None, B=8, S=2048, new=32,
+                   cache_B=2, cache_prefill=1000, cache_steps=16)
+SERVE_ZOO_SMALL = ("qwen3-moe-235b-a22b", "kimi-k2-1t-a32b", "mamba2-2.7b",
+                   "jamba-1.5-large-398b")
+# a token's k-th and (k+1)-th router probabilities within this of each
+# other are a near-tie: float32 sums in another order may swap them
+ROUTE_TIE = 1e-5
+# moe_apply_a2a against the scatter path: |diff| <= tol x RMS (the
+# reference's own a2a bound, tests/test_dryrun_small.py:243-252)
+SERVE_A2A_TOL = 1e-3
+
+
+def _zoo_config(arch: str, layers, reduced: bool, **over):
+    """``arch``'s published config (or its reduced one) cut to ``layers``
+    blocks of its pattern (None: whole)."""
+    cfg = (get_reduced if reduced else get_config)(arch)
+    if layers is not None:
+        n = layers // len(cfg.pattern)
+        over = dict(n_blocks=n, n_layers=n * len(cfg.pattern),
+                    remainder=(), **over)
+    return dataclasses.replace(cfg, **over)
+
+
+def _zoo_params(cfg, device, dtype=None):
+    """``cfg``'s weights from seed 0, drawn on the card there (much faster
+    than the CPU's draw, other values) and on the CPU here; returns
+    (params, seconds)."""
+    t0 = time.perf_counter()
+    params = init_params(model_defs(cfg), 0, device, dtype or cfg.pdtype(),
+                         draw="device" if device.type == "cuda" else "cpu")
+    _sync(device)
+    return params, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def count_drops():
+    """Within the block, every scatter-path MoE call appends (tokens a row,
+    assignments the capacity drops) to the yielded list (a host read a
+    call)."""
+    got, orig = [], _moe.moe_apply
+
+    def counting(p, x, spec):
+        _, _, _, eidx = _moe.route(p, x, spec.top_k)
+        C = _moe.capacity(x.shape[1], spec.top_k, spec.n_experts,
+                          spec.capacity_factor)
+        pos = _moe._positions_in_expert(eidx, spec.n_experts)
+        got.append((x.shape[1], int(torch.sum(pos >= C)), C))
+        return orig(p, x, spec)
+    _moe.moe_apply = counting
+    try:
+        yield got
+    finally:
+        _moe.moe_apply = orig
+
+
+def _serve_a2a(device, cfg, params, sz, log) -> dict:
+    """``moe_apply_a2a`` on a (1, 1) mesh (NCCL on the card, gloo here) at
+    ``cfg``'s width against the scatter path on the same layer and tokens,
+    within ``SERVE_A2A_TOL`` x RMS."""
+    import tempfile
+
+    import torch.distributed as dist
+    p = _index(params.tree()["blocks"], 0)["sub0"]["moe"]
+    spec = layer_ctx(cfg, cfg.pattern[0])
+    gen = torch.Generator(device=device).manual_seed(3)
+    x = torch.randn((sz["a2a_B"], sz["a2a_S"], cfg.d_model), generator=gen,
+                    device=device, dtype=cfg.adtype())
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                                init_method=f"file://{tmp}/rdv",
+                                world_size=1, rank=0)
+        try:
+            mesh = _shd.mesh_2d(1, 1, device.type)
+            with torch.inference_mode():
+                want, aux_w = _moe.moe_apply(p, x, spec)
+                t0 = time.perf_counter()
+                got, aux = _moe_a2a.moe_apply_a2a(p, x, spec, mesh)
+                _sync(device)
+                wall = time.perf_counter() - t0
+        finally:
+            dist.destroy_process_group()
+    rms = float(torch.sqrt(torch.mean(want.double() ** 2)))
+    err = float(torch.max(torch.abs(got - want)))
+    require(err <= SERVE_A2A_TOL * rms,
+            f"serve a2a: moe_apply_a2a parts from the scatter path by {err} "
+            f"> {SERVE_A2A_TOL} x RMS {rms}")
+    row = dict(step="moe_a2a", arch=cfg.name, world_size=1,
+               backend="nccl" if device.type == "cuda" else "gloo",
+               tokens=sz["a2a_B"] * sz["a2a_S"],
+               capacity_factor=spec.capacity_factor, max_abs_err=err,
+               rms=rms, tol=SERVE_A2A_TOL, aux=float(aux),
+               aux_scatter=float(aux_w), seconds=wall)
+    log("serve " + json.dumps(row))
+    return row
+
+
+def _serve_moe(device, sz, reduced: bool, pool, log) -> dict:
+    """qwen3-moe at its width cut in depth: generation, the dropped
+    assignments of each layer at prefill, the KV selection (its launches
+    counted, the held layers equal to the CPU path), the float32 cache path
+    and moe_apply_a2a at one layer."""
+    chunk = dict(attn_chunk=sz["attn_chunk"]) if sz["attn_chunk"] else {}
+    cfg = _zoo_config(sz["arch"], sz["layers"], reduced, **chunk)
+    params, init_s = _zoo_params(cfg, device)
+    gen, prompts, toks = _serve_generate(device, cfg, params, sz, init_s,
+                                         log)
+    with count_drops() as drops:
+        sel, kernels, _ = _serve_prune(device, cfg, params, prompts, toks,
+                                       sz, pool, log)
+    pre = [(d, C) for S_, d, C in drops if S_ == sz["S"]]
+    require(len(pre) == cfg.n_layers,
+            f"serve moe: {len(pre)} MoE calls at prefill, "
+            f"{cfg.n_layers} layers")
+    gen["dropped_at_prefill"] = [d for d, _ in pre]
+    gen["capacity"] = pre[0][1]
+    gen["assignments_a_layer"] = sz["B"] * sz["S"] * cfg.top_k
+    log("serve " + json.dumps(dict(step="moe_drops", arch=cfg.name,
+                                   capacity=gen["capacity"],
+                                   dropped_at_prefill=gen[
+                                       "dropped_at_prefill"],
+                                   assignments_a_layer=gen[
+                                       "assignments_a_layer"])))
+    for k in kernels:
+        k["dataset"] = f"serving {sz['arch']}"
+    del params
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    cfg1 = _zoo_config(sz["arch"], sz["cache_layers"], reduced, **chunk,
+                       capacity_factor=sz["cache_cf"],
+                       param_dtype="float32", activ_dtype="float32")
+    p1, _ = _zoo_params(cfg1, device)
+    P, steps = sz["cache_prefill"], sz["cache_steps"]
+    S_fwd = P + steps
+    if cfg1.attn_chunk is not None:
+        # the chunked forward takes whole chunks
+        S_fwd = -(-S_fwd // cfg1.attn_chunk) * cfg1.attn_chunk
+        require(S_fwd > cfg1.attn_chunk >= P,
+                f"serve moe: forward over {S_fwd} must be chunked and "
+                f"prefill over {P} not (attn_chunk {cfg1.attn_chunk})")
+    cache = _decode_vs_forward(device, cfg1, p1, sz["cache_B"], S_fwd, P,
+                               steps, log)
+    a2a = _serve_a2a(device, cfg1, p1, sz, log)
+    del p1
+    return dict(rows=[gen, sel, cache, a2a], launches=sel["launches"],
+                kernels=kernels)
+
+
+def _serve_mamba(device, sz, reduced: bool, log) -> list:
+    """mamba2-2.7b (whole): generation, then its float32 cache path."""
+    cfg = _zoo_config(sz["arch"], sz["layers"], reduced)
+    params, init_s = _zoo_params(cfg, device)
+    gen, _, _ = _serve_generate(device, cfg, params, sz, init_s, log)
+    P, steps = sz["cache_prefill"], sz["cache_steps"]
+    require(P % cfg.mamba_chunk != 0,
+            f"serve mamba: the prefill of {P} must end inside a chunk of "
+            f"{cfg.mamba_chunk}")
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                activ_dtype="float32")
+    params.float()
+    cache = _decode_vs_forward(device, cfg32, params, sz["cache_B"],
+                               P + steps, P, steps, log)
+    return [gen, cache]
+
+
+def run_serving_zoo(device, sizes=None, log=print) -> dict:
+    """The MoE and Mamba2 phase (``SERVE_MOE``, ``SERVE_MAMBA``, each with
+    ``sizes[arch]`` over it; ``sizes["reduced"]`` runs the reduced configs
+    in their place): qwen3-moe generation, KV selection, float32 cache path
+    and a2a; mamba2 generation and float32 cache path; the reduced
+    ``SERVE_ZOO_SMALL`` configs card against CPU.  On the card the held
+    lanes' CPU selection runs in a worker process started first."""
+    device = torch.device(device)
+    sizes = sizes or {}
+    reduced = bool(sizes.get("reduced"))
+    moe_sz = dict(SERVE_MOE, **sizes.get("moe", {}))
+    mamba_sz = dict(SERVE_MAMBA, **sizes.get("mamba", {}))
+    small_sz = dict(SERVE, **sizes.get("small", {}))
+    t0 = time.perf_counter()
+    pool = None
+    if device.type == "cuda":
+        pool = concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_cpu_worker_init, initargs=(CPU_REF_THREADS,))
+        pool.submit(_cpu_worker_init, CPU_REF_THREADS)
+    try:
+        moe = _serve_moe(device, moe_sz, reduced, pool, log)
+    finally:
+        if pool is not None:
+            pool.shutdown(wait=True, cancel_futures=True)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    rows = moe["rows"] + _serve_mamba(device, mamba_sz, reduced, log)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    for arch in SERVE_ZOO_SMALL:
+        rows.append(_serve_small(device, arch, small_sz, log))
+    if device.type == "cuda":
+        log("serve zoo card " + nvidia_smi())
+    return dict(rows=rows, launches=moe["launches"], kernels=moe["kernels"],
+                seconds=time.perf_counter() - t0)
 
 
 def _scan_state(device, name: str, rounds: int, length=None):
@@ -3256,9 +3639,12 @@ def main() -> int:
         seconds_with_holds=bl["seconds_with_holds"])))
     srv = run_serving(device)
     seconds["serving"] = srv["seconds"]
-    for kname, c in srv["launches"].items():
-        report["launches"][kname] += c
-    report["kernels"] += srv["kernels"]
+    zoo = run_serving_zoo(device)
+    seconds["serving_zoo"] = zoo["seconds"]
+    for part in (srv, zoo):
+        for kname, c in part["launches"].items():
+            report["launches"][kname] += c
+        report["kernels"] += part["kernels"]
     print(nvidia_smi())
     t0 = time.perf_counter()
     print("lockstep " + json.dumps(scan_lockstep(device)))

@@ -112,15 +112,17 @@ _KEY = {torch.float64: (torch.int64, 0x7FFFFFFFFFFFFFFF, 63),
 
 
 def top_k_total(v: torch.Tensor, k: int):
-    """``jax.lax.top_k(v, k)`` in ``v``'s type: the k largest values under
-    IEEE's total order (+0.0 above -0.0, +inf above every finite value),
-    ties in index order.  A stable descending sort of the values' bits,
-    mapped to integers that order as the total order does."""
+    """``jax.lax.top_k(v, k)`` over ``v``'s last axis, in ``v``'s type: the
+    k largest values under IEEE's total order (+0.0 above -0.0, +inf above
+    every finite value), ties in index order.  A stable descending sort of
+    the values' bits, mapped to integers that order as the total order
+    does."""
     itype, mag, shift = _KEY[v.dtype]
     bits = v.view(itype)
     key = bits ^ ((bits >> shift) & mag)
-    order = torch.sort(key, descending=True, stable=True).indices[:k]
-    return v[order], order
+    order = torch.sort(key, dim=-1, descending=True,
+                       stable=True).indices[..., :k]
+    return torch.gather(v, -1, order), order
 
 
 def constrained_removal(x, cfg: CameoConfig, rank_fn, *, device="cuda",

@@ -3,12 +3,13 @@
 
 ``LONG_CONTEXT_ARCHS`` names the archs that run the ``long_500k`` cell
 (sub-quadratic capable); pure full-attention archs skip it.  The counts
-come from the port's own ``model_defs``, so they exist for the attention
-architectures this slice serves; MoE and Mamba archs raise there.
+come from the port's own ``model_defs`` (shape arithmetic, nothing
+allocated), for every architecture.
 """
 from __future__ import annotations
 
 import importlib
+import math
 
 from repro_torch.configs.base import SHAPES, ModelConfig
 
@@ -59,3 +60,24 @@ def param_count(cfg: ModelConfig) -> int:
     from repro_torch.models.model import model_defs
     from repro_torch.models.params import count_params
     return count_params(model_defs(cfg))
+
+
+def active_param_count(cfg: ModelConfig) -> int:
+    """Active parameters per token: an MoE layer counts ``top_k`` of its
+    ``n_experts`` experts (its shared expert whole), as the reference's
+    ``active_param_count`` does."""
+    total = param_count(cfg)
+    if cfg.n_experts == 0:
+        return total
+    from repro_torch.models.model import model_defs
+    from repro_torch.models.params import _map_defs
+
+    expert_total = 0
+
+    def visit(path, d):
+        nonlocal expert_total
+        if "moe" in path and path[-1] in ("wi_gate", "wi_up", "wo"):
+            expert_total += math.prod(d.shape)
+
+    _map_defs(visit, model_defs(cfg))
+    return int(total - expert_total * (1.0 - cfg.top_k / cfg.n_experts))

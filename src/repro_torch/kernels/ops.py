@@ -6,7 +6,7 @@ products, Algorithm-2 single-delta impacts (Eq. 8), exact windowed impacts
 Backends, chosen per call and plumbed from ``CameoConfig.backend``:
 
 * ``"cuda"``      — the hand-written kernels (``lag_dot``, ``prefix_sum``,
-  ``dense_sxx``, ``acf_impact``, ``acf_window_impact``,
+  ``dense_sxx``, ``cell_sum``, ``acf_impact``, ``acf_window_impact``,
   ``fused_round.window_rows_cuda`` and ``fused_round.prefix_devs_cuda``).  Asking for it with CPU tensors
   raises.
 * ``"reference"`` — the plain PyTorch forms, on whatever device the
@@ -32,6 +32,7 @@ from repro_torch.core import measures as _measures
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.acf_impact import acf_impact_cuda
 from repro_torch.kernels.acf_window_impact import acf_window_impact_cuda
+from repro_torch.kernels.cell_sum import cell_sum_cuda, cell_sum_plain
 from repro_torch.kernels.dense_sxx import dense_sxx_cuda, dense_sxx_plain
 from repro_torch.kernels.lag_dot import lag_dot_cuda, lag_dot_plain
 from repro_torch.kernels.prefix_sum import prefix_sum_cuda, prefix_sum_plain
@@ -309,19 +310,17 @@ def x_window_to_y(cfg, dwin: torch.Tensor, start: torch.Tensor):
 
     ``dwin`` is ``[..., W]`` with matching ``start [...]``; for
     ``kappa == 1`` this is the identity, otherwise each window is
-    segment-summed onto the ``Wy = W // kappa + 2`` covered y cells.  The
-    segment sum is a one-hot reduction, deterministic on every device
-    (a scatter-add would sum in atomic order on the card).
+    segment-summed onto the ``Wy = W // kappa + 2`` covered y cells, each
+    cell left to right from +0 and divided by kappa once, as strict XLA
+    runs the reference's ``segment_sum`` (``kernels/cell_sum.py``: the
+    kernel on the card, the plain version on the CPU, the same bits).
     """
     kap = cfg.kappa
     if kap == 1:
         return dwin, start
-    W = dwin.shape[-1]
-    Wy = W // kap + 2
-    b0 = start // kap
-    j = torch.arange(W, dtype=torch.int32, device=dwin.device)
-    seg = (start[..., None] + j) // kap - b0[..., None]          # [..., W]
-    cells = torch.arange(Wy, dtype=seg.dtype, device=dwin.device)
-    onehot = (seg[..., None] == cells).to(dwin.dtype)             # [..., W, Wy]
-    dyw = torch.sum(dwin[..., None] * onehot, dim=-2)
-    return _ref.div_exact(dyw, kap), b0
+    if resolve_backend(getattr(cfg, "backend", "auto"),
+                       dwin.device) == "cuda":
+        dyw = cell_sum_cuda(dwin, start, kap)
+    else:
+        dyw = cell_sum_plain(dwin, start, kap)
+    return dyw, start // kap

@@ -141,6 +141,14 @@ def unembed(p, h: torch.Tensor, *, tied_table=None,
 # MLPs
 # ---------------------------------------------------------------------------
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``'s order: ``x * (1 / (1 + exp(-x)))``, each step
+    rounded in ``x``'s type, as XLA lowers ``jax.nn.sigmoid`` (``F.silu``
+    and ``torch.sigmoid`` round once, which in bfloat16 parts from the
+    reference in about a third of the values)."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
 def mlp_defs(d: int, ff: int, kind: str = "swiglu"):
     if kind == "swiglu":
         return {
@@ -158,7 +166,7 @@ def mlp_defs(d: int, ff: int, kind: str = "swiglu"):
 
 def mlp(p, x: torch.Tensor, kind: str = "swiglu") -> torch.Tensor:
     if kind == "swiglu":
-        h = F.silu(x @ p["wi_gate"]) * (x @ p["wi_up"])
+        h = silu(x @ p["wi_gate"]) * (x @ p["wi_up"])
     else:
         # jax.nn.gelu's default is the tanh approximation
         h = F.gelu(x @ p["wi"], approximate="tanh")

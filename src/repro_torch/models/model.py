@@ -1,17 +1,19 @@
-"""Decoder model over block patterns (port of ``repro.models.model``), the
-attention path: dense and windowed attention layers with dense MLPs.
+"""Composable decoder model over block patterns (port of
+``repro.models.model``): dense / windowed attention and Mamba2 mixers, each
+with a dense or MoE MLP (or none), in any pattern (the hybrid's too).
 
 * ``model_defs``   — ParamDef tree (stacked block params).
-* ``forward``      — train-time logits (+ aux loss, 0 without MoE).
-* ``prefill``      — last-position logits + per-layer caches for serving.
+* ``forward``      — train-time logits + the summed MoE aux loss.
+* ``prefill``      — last-position logits + per-layer caches for serving
+                     (``KVCache`` for attention, ``MambaCache`` for Mamba).
 * ``decode_step``  — one-token step against the stacked caches.
 
 The reference scans the repeated block pattern (``jax.lax.scan`` over the
 stacked block params); the port walks the block axis in a Python loop,
 reading block ``i``'s parameters and caches as views ``[i]``.  Remat
 belongs to training and is not applied; the reference's sharding
-constraints are dropped (one device).  MoE and Mamba layers are later
-slices of the port: ``model_defs`` raises for them.
+constraints are dropped (one device; the MoE's a2a forms shard over ranks
+under ``sharding.use_sharding``).
 """
 from __future__ import annotations
 
@@ -22,6 +24,9 @@ import torch
 from repro_torch.configs.base import LayerSpec, ModelConfig, layer_ctx
 from repro_torch.core.cameo import _device
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mb
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import moe_a2a
 from repro_torch.models.layers import (
     embed, embed_defs, mlp, mlp_defs, rmsnorm, rmsnorm_defs,
     sinusoidal_positions, unembed, unembed_defs,
@@ -33,30 +38,26 @@ from repro_torch.models.params import as_tree, stack_defs
 # definitions
 # ---------------------------------------------------------------------------
 
-def _check_layer(cfg: ModelConfig, ls: LayerSpec) -> None:
-    if ls.kind == "mamba":
-        raise NotImplementedError(
-            f"{cfg.name}: Mamba layers (repro.models.mamba) are a later slice "
-            f"of the port (ROADMAP A4: Mamba2 and the jamba hybrid)")
-    if ls.moe:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers (repro.models.moe, moe_a2a) are a later "
-            f"slice of the port (ROADMAP A4: MoE)")
-    if ls.kind != "attn":
-        raise ValueError(ls.kind)
-
-
 def layer_defs(cfg: ModelConfig, ls: LayerSpec):
-    _check_layer(cfg, ls)
-    d = {"pre_norm": rmsnorm_defs(cfg.d_model),
-         "attn": attn.attention_defs(
-             cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-             qk_norm=cfg.qk_norm, qkv_bias=cfg.qkv_bias)}
+    d = {"pre_norm": rmsnorm_defs(cfg.d_model)}
+    if ls.kind == "attn":
+        d["attn"] = attn.attention_defs(
+            cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+            qk_norm=cfg.qk_norm, qkv_bias=cfg.qkv_bias)
+    elif ls.kind == "mamba":
+        d["mamba"] = mb.mamba_defs(layer_ctx(cfg, ls))
+    else:
+        raise ValueError(ls.kind)
     if cfg.sandwich_norm:
         d["post_mix_norm"] = rmsnorm_defs(cfg.d_model)
-    if ls.mlp:
+    if ls.moe or ls.mlp:
         d["mlp_norm"] = rmsnorm_defs(cfg.d_model)
-        d["mlp"] = mlp_defs(cfg.d_model, cfg.d_ff, kind=cfg.mlp_kind)
+        if ls.moe:
+            d["moe"] = moe_mod.moe_defs(
+                cfg.d_model, cfg.d_ff_expert, cfg.n_experts,
+                cfg.n_shared_experts)
+        else:
+            d["mlp"] = mlp_defs(cfg.d_model, cfg.d_ff, kind=cfg.mlp_kind)
         if cfg.sandwich_norm:
             d["post_mlp_norm"] = rmsnorm_defs(cfg.d_model)
     return d
@@ -81,8 +82,8 @@ def _index(tree, i: int):
     """Block ``i``'s slice of a stacked tree (views)."""
     if isinstance(tree, dict):
         return {k: _index(v, i) for k, v in tree.items()}
-    if isinstance(tree, attn.KVCache):
-        return attn.KVCache(*(_index(a, i) for a in tree))
+    if isinstance(tree, (attn.KVCache, mb.MambaCache)):
+        return type(tree)(*(_index(a, i) for a in tree))
     return tree[i]
 
 
@@ -90,29 +91,42 @@ def _index(tree, i: int):
 # layer application
 # ---------------------------------------------------------------------------
 
-def _mlp_half(cfg, ls, p, h):
-    if not ls.mlp:
-        return h
-    y = mlp(p["mlp"], rmsnorm(p["mlp_norm"], h, cfg.norm_eps),
-            kind=cfg.mlp_kind)
+def _mlp_half(cfg, ls, ctx, p, h):
+    """The MLP half of a layer (dense, MoE through ``moe_a2a.moe_apply`` by
+    ``cfg.moe_impl``, or none).  Returns (h, the MoE aux loss or None)."""
+    aux = None
+    if not (ls.moe or ls.mlp):
+        return h, aux
+    u = rmsnorm(p["mlp_norm"], h, cfg.norm_eps)
+    if ls.moe:
+        y, aux = moe_a2a.moe_apply(p["moe"], u, ctx, impl=cfg.moe_impl)
+    else:
+        y = mlp(p["mlp"], u, kind=cfg.mlp_kind)
     if cfg.sandwich_norm:
         y = rmsnorm(p["post_mlp_norm"], y, cfg.norm_eps)
-    return h + y
+    return h + y, aux
 
 
 def _apply_layer_full(cfg, ls, p, h, positions, want_cache: bool,
                       max_len: Optional[int] = None):
-    """Full-sequence layer (train/prefill). Returns (h, cache|None)."""
+    """Full-sequence layer (train/prefill). Returns (h, aux|None,
+    cache|None)."""
     ctx = layer_ctx(cfg, ls)
     u = rmsnorm(p["pre_norm"], h, cfg.norm_eps)
-    mix, (k, v) = attn.attend_train(p["attn"], u, positions, ctx)
     cache = None
-    if want_cache:
-        pos2 = positions if positions.dim() == 2 else positions[0]
-        cache = _kv_cache_from_prefill(ctx, k, v, pos2, cfg, max_len)
+    if ls.kind == "attn":
+        mix, (k, v) = attn.attend_train(p["attn"], u, positions, ctx)
+        if want_cache:
+            pos2 = positions if positions.dim() == 2 else positions[0]
+            cache = _kv_cache_from_prefill(ctx, k, v, pos2, cfg, max_len)
+    else:
+        mix, mcache = mb.mamba_train(p["mamba"], u, ctx)
+        if want_cache:
+            cache = mcache
     if cfg.sandwich_norm:
         mix = rmsnorm(p["post_mix_norm"], mix, cfg.norm_eps)
-    return _mlp_half(cfg, ls, p, h + mix), cache
+    h, aux = _mlp_half(cfg, ls, ctx, p, h + mix)
+    return h, aux, cache
 
 
 def _kv_cache_from_prefill(ctx, k, v, positions, cfg, max_len=None):
@@ -151,10 +165,13 @@ def _kv_cache_from_prefill(ctx, k, v, positions, cfg, max_len=None):
 def _apply_layer_decode(cfg, ls, p, h, pos: int, cache):
     ctx = layer_ctx(cfg, ls)
     u = rmsnorm(p["pre_norm"], h, cfg.norm_eps)
-    mix, cache = attn.attend_decode(p["attn"], u, pos, cache, ctx)
+    if ls.kind == "attn":
+        mix, cache = attn.attend_decode(p["attn"], u, pos, cache, ctx)
+    else:
+        mix, cache = mb.mamba_decode(p["mamba"], u, cache, ctx)
     if cfg.sandwich_norm:
         mix = rmsnorm(p["post_mix_norm"], mix, cfg.norm_eps)
-    return _mlp_half(cfg, ls, p, h + mix), cache
+    return _mlp_half(cfg, ls, ctx, p, h + mix)[0], cache
 
 
 # ---------------------------------------------------------------------------
@@ -208,14 +225,19 @@ def forward(params, cfg: ModelConfig, batch):
     """Training forward: logits [B, S, V] f32 + scalar aux loss."""
     params = as_tree(params)
     h, positions = _embed_inputs(cfg, params, batch)
-    for ls, p, _, _ in _layers(cfg, params):
-        h, _ = _apply_layer_full(cfg, ls, p, h, positions, want_cache=False)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    for ls, p, _, _ in _layers(cfg, params):
+        h, a, _ = _apply_layer_full(cfg, ls, p, h, positions,
+                                    want_cache=False)
+        if a is not None:       # the reference adds 0 for a dense layer
+            aux = aux + a
     return _head(cfg, params, h), aux
 
 
-def _stack_caches(caches: list) -> attn.KVCache:
-    return attn.KVCache(*(torch.stack(f) for f in zip(*caches)))
+def _stack_caches(caches: list):
+    """Layer caches (all ``KVCache`` or all ``MambaCache``) stacked on a
+    leading block axis."""
+    return type(caches[0])(*(torch.stack(f) for f in zip(*caches)))
 
 
 @torch.inference_mode()
@@ -229,8 +251,8 @@ def prefill(params, cfg: ModelConfig, batch, max_len: Optional[int] = None):
     per_block = {f"sub{j}": [] for j in range(len(cfg.pattern))}
     caches = {}
     for ls, p, key, i in _layers(cfg, params):
-        h, c = _apply_layer_full(cfg, ls, p, h, positions, want_cache=True,
-                                 max_len=max_len)
+        h, _, c = _apply_layer_full(cfg, ls, p, h, positions,
+                                    want_cache=True, max_len=max_len)
         if i is None:
             caches[key] = c
         else:
@@ -271,9 +293,10 @@ def init_caches(cfg: ModelConfig, B: int, max_len: int, dtype=None,
     device = _device(device)
 
     def one(ls: LayerSpec):
-        _check_layer(cfg, ls)
-        return attn.init_kv_cache(layer_ctx(cfg, ls), B, max_len, dtype,
-                                  device)
+        ctx = layer_ctx(cfg, ls)
+        if ls.kind == "attn":
+            return attn.init_kv_cache(ctx, B, max_len, dtype, device)
+        return mb.init_mamba_cache(ctx, B, dtype, device)
 
     caches = {"blocks": {f"sub{j}": _stack_caches([one(ls)] * cfg.n_blocks)
                          for j, ls in enumerate(cfg.pattern)}}

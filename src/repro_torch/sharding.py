@@ -21,11 +21,20 @@ cards.  One partition a rank.  The JAX collectives map as:
 
 Run under ``torchrun --nproc_per_node T`` (NCCL, a card a rank) or with
 ``torch.multiprocessing`` and gloo on the CPU; :func:`mesh_1d` builds the
-mesh over the processes of the default group.  The model-zoo rules of the
-JAX file (``default_rules``, ``spec_for``, ``named_sharding``) are not
-ported (ROADMAP A4).
+mesh over the processes of the default group.
+
+The model zoo's expert-parallel MoE (``models/moe_a2a.py``) runs on a 2-D
+mesh ``("data", "model")`` (:func:`mesh_2d`) made active for a block of
+code with :func:`use_sharding` (read by :func:`active_mesh`), as the
+reference's ``use_sharding``/``active_mesh`` (``repro/sharding.py:50-63``);
+``all_to_all_single`` over the model dimension's group is its
+``all_to_all``.  The model-zoo rules of the JAX file (``default_rules``,
+``spec_for``, ``named_sharding``) are not ported (ROADMAP A4.3).
 """
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 import torch.distributed as dist
@@ -41,6 +50,40 @@ def mesh_1d(device_type: str = "cuda", axis: str = DEFAULT_AXIS):
     from torch.distributed.device_mesh import init_device_mesh
     return init_device_mesh(device_type, (dist.get_world_size(),),
                             mesh_dim_names=(axis,))
+
+
+def mesh_2d(dp: int, mp: int, device_type: str = "cuda"):
+    """A ``(dp, mp)`` mesh over the ``dp x mp`` processes of the default
+    group, its dimensions named ``("data", "model")``: rank ``r`` sits at
+    data index ``r // mp`` and model index ``r % mp``."""
+    from torch.distributed.device_mesh import init_device_mesh
+    if dp * mp != dist.get_world_size():
+        raise ValueError(f"a {dp} x {mp} mesh over "
+                         f"{dist.get_world_size()} processes")
+    return init_device_mesh(device_type, (dp, mp),
+                            mesh_dim_names=("data", "model"))
+
+
+_state = threading.local()
+
+
+@contextlib.contextmanager
+def use_sharding(mesh):
+    """Make ``mesh`` active in this thread for the block (the reference's
+    ``use_sharding`` without its rule table, which the port does not
+    read)."""
+    prev = getattr(_state, "mesh", None)
+    _state.mesh = mesh
+    try:
+        yield
+    finally:
+        _state.mesh = prev
+
+
+def active_mesh():
+    """The mesh :func:`use_sharding` made active in this thread, or
+    None."""
+    return getattr(_state, "mesh", None)
 
 
 def axis_group(mesh, axis: str = DEFAULT_AXIS):

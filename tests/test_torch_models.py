@@ -1,10 +1,13 @@
 """The port's model substrate (``repro_torch.configs``, ``repro_torch.models``)
 against the JAX package's, on the CPU.
 
-The six attention architectures' reduced configs (float32, B = 2, S = 32),
-the reference's weights carried across with ``convert.params_from_numpy``:
-``forward`` logits, ``prefill`` and ``decode_step`` within 2e-4 (the
-reference's own ``test_prefill_decode_matches_forward`` tolerance), the
+All ten architectures' reduced configs (float32, B = 2, S = 32; the MoE
+and Mamba families' layers are held one by one in ``test_torch_moe.py`` and
+``test_torch_mamba.py``), the reference's weights carried across with
+``convert.params_from_numpy``: ``forward`` logits and aux loss,
+``prefill`` and ``decode_step`` within 2e-4 (the reference's own
+``test_prefill_decode_matches_forward`` tolerance; decode against forward
+at capacity factor 8 for the MoE archs, as the reference sets it), the
 chunked attention path, the int8 cache, gemma3's ring cache past its
 window, ``kv_prune = 4`` ring placement, full-size parameter counts, the
 loader's checks, one bfloat16 case and the bfloat16 layer casts.  The JAX
@@ -41,6 +44,7 @@ ATTN_ARCHS = ("stablelm-12b", "gemma3-27b", "qwen3-0.6b", "smollm-135m",
               "qwen2-vl-2b", "musicgen-large")
 OTHER_ARCHS = ("qwen3-moe-235b-a22b", "kimi-k2-1t-a32b", "mamba2-2.7b",
                "jamba-1.5-large-398b")
+ALL_ARCHS = ATTN_ARCHS + OTHER_ARCHS
 B, S = 2, 32
 TOL = 2e-4            # the reference's prefill/decode-vs-forward tolerance
 
@@ -105,32 +109,52 @@ def _close(got, want, tol=TOL):
                                atol=tol)
 
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_forward_matches_reference(arch):
     jcfg, tcfg, jp, tp, jb, tb = _setup(arch)
     want, jaux = jax.jit(lambda p, b: jm.forward(p, jcfg, b))(jp, jb)
     got, aux = tm.forward(tp, tcfg, tb)
     assert got.shape == (B, S, tcfg.vocab) and got.dtype == torch.float32
     _close(got, want)
-    assert float(aux) == float(jaux) == 0.0
+    assert aux.dtype == torch.float32
+    if tcfg.n_experts:
+        # the summed switch and z losses of every MoE layer
+        assert float(aux) > 0
+        np.testing.assert_allclose(float(aux), float(jaux), rtol=TOL)
+    else:
+        assert float(aux) == float(jaux) == 0.0
 
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+def _moe_over(arch) -> dict:
+    """Capacity factor 8 for an MoE arch (no capacity drops), where its
+    decode is held to its forward, as the reference's own test sets it."""
+    return dict(capacity_factor=8.0) if treg.get_reduced(arch).n_experts \
+        else {}
+
+
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_prefill_decode_match_reference_and_forward(arch):
-    """Prefill's logits and caches, then two decode steps, against JAX's;
-    the decode at position S against the port's own forward over S + 1
-    tokens (the reference's cache-consistency invariant)."""
-    jcfg, tcfg, jp, tp, jb, tb = _setup(arch, seed=1, step=1)
+    """Prefill's logits and caches (every layer's, attention and Mamba),
+    then two decode steps, against JAX's; the decode at position S against
+    the port's own forward over S + 1 tokens (the reference's
+    cache-consistency invariant)."""
+    jcfg, tcfg, jp, tp, jb, tb = _setup(arch, seed=1, step=1,
+                                        **_moe_over(arch))
     full = token_batch(jcfg, B, S + 2, step=7)
     nxt = np.asarray(full["tokens"][:, -2:])
     jl, jc = _j_prefill(jp, jcfg, jb, S + 4)
     tl, tc = tm.prefill(tp, tcfg, tb, max_len=S + 4)
     _close(tl, jl)
-    jk = jc["blocks"]["sub0"]
-    tk = tc["blocks"]["sub0"]
-    assert tk.k.shape == jk.k.shape
-    np.testing.assert_array_equal(tk.pos_ids.numpy(), np.asarray(jk.pos_ids))
-    _close(tk.k, jk.k)
+    for key, tk in tc["blocks"].items():
+        jk = jc["blocks"][key]
+        assert type(tk).__name__ == type(jk).__name__
+        for f in tk._fields:
+            assert getattr(tk, f).shape == getattr(jk, f).shape, (key, f)
+            if f == "pos_ids":
+                np.testing.assert_array_equal(getattr(tk, f).numpy(),
+                                              np.asarray(getattr(jk, f)))
+            else:
+                _close(getattr(tk, f), getattr(jk, f))
     for i in range(2):
         tok = nxt[:, i:i + 1]
         jl, jc = _j_decode(jp, jcfg, jnp.asarray(tok), jc, S + i)
@@ -422,17 +446,24 @@ def test_bfloat16_drift_from_float32_is_the_reference_s(depth):
     assert port <= max(1.25 * ref, ref + 5e-3)
 
 
-@pytest.mark.parametrize("arch", ATTN_ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 def test_param_count_full_size_matches_reference(arch):
     """Shape arithmetic at the published widths: nothing is allocated."""
     assert treg.param_count(treg.get_config(arch)) == \
         jreg.param_count(jreg.get_config(arch))
 
 
-@pytest.mark.parametrize("arch", OTHER_ARCHS)
-def test_moe_and_mamba_archs_name_their_slice(arch):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        treg.param_count(treg.get_reduced(arch))
+@pytest.mark.parametrize("arch", ALL_ARCHS)
+def test_active_param_count_matches_reference(arch):
+    """Active parameters a token at the published widths (MoE: top_k of
+    the experts); qwen3-moe-235b-a22b's are its name's 22 B."""
+    cfg = treg.get_config(arch)
+    got = treg.active_param_count(cfg)
+    assert got == jreg.active_param_count(jreg.get_config(arch))
+    if arch == "qwen3-moe-235b-a22b":
+        assert 20e9 <= got <= 25e9
+    if not cfg.n_experts:
+        assert got == treg.param_count(cfg)
 
 
 def test_registry_mirrors_reference():

@@ -7,10 +7,10 @@ XLA fuses the line's multiply-add inside the reference's
 though not in ``interpolate_at``; the port rounds it once with
 ``kernels.ref.fma_rn``.  Held here bit for bit against strict-compiled JAX
 in a subprocess, with ``fma_rn`` against exact rational arithmetic.  The
-aggregate map ``x_window_to_y`` equals the reference's at kappa 1 and 2;
-XLA's segment sum adds a cell's terms left to right from zero, which the
-port's one-hot sum does not repeat once a cell sums more than two terms
-(C20, open): a left-to-right oracle equals strict JAX there.
+aggregate map ``x_window_to_y`` equals the reference's at every kappa (2,
+4 and aus_elec's 48): XLA's segment sum adds a cell's terms left to right
+from zero, and so do the port's ``cell_sum`` and its plain version (C20);
+a left-to-right oracle equals strict JAX too.
 """
 import dataclasses
 import os
@@ -29,16 +29,29 @@ from repro.core.aggregates import alive_neighbors as j_alive_neighbors
 from repro.core.aggregates import segment_deltas as j_segment_deltas
 from repro.kernels import ops as jops
 from repro_torch import convert
+from repro_torch.core import cameo as tc
 from repro_torch.core.aggregates import segment_deltas
+from repro_torch.data.synthetic import dataset_cameo_kwargs, make_dataset
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels.ref import fma_rn
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 STRICT_XLA_FLAGS = ("--xla_disable_hlo_passes=algsimp "
                     "--xla_backend_optimization_level=0")
-# (dtype, kappa, W): the rounds' tier C window and tier B's
-CASES = [(dt, kap, W) for dt in ("float32", "float64") for kap in (1, 2, 4)
-         for W in (64, 8)]
+# (dtype, kappa, W): the rounds' tier C window and tier B's; kappa 48 is
+# aus_elec's
+CASES = [(dt, kap, W) for dt in ("float32", "float64")
+         for kap in (1, 2, 4, 48) for W in (64, 8)]
+
+
+# the compress() run at kappa 48: an aus_elec stand-in of 4,800 points
+# (100 target cells, L 7)
+AUS_N = 4800
+AUS_FIELDS = ("kept", "iters", "deviation", "xr")
+
+
+def _aus_cfg():
+    return jc.CameoConfig(eps=1e-2, **dataset_cameo_kwargs("aus_elec"))
 
 
 def _case_id(case):
@@ -74,6 +87,10 @@ def _reference_main(out):
         res[f"{_case_id(case)}/dyw"] = np.asarray(jax.jit(
             lambda *a: jops.x_window_to_y(
                 cfg, *j_segment_deltas(*a, W)[:2])[0])(*args))
+    r = jc.compress(jnp.asarray(make_dataset("aus_elec", seed=0,
+                                             length=AUS_N)), _aus_cfg())
+    for f in AUS_FIELDS:
+        res[f"aus/{f}"] = np.asarray(getattr(r, f))
     np.savez(out, **res)
 
 
@@ -155,9 +172,9 @@ def _sequential_segment_sum(dwin, start, kap):
                          ids=_case_id)
 def test_x_window_to_y_order(strict, case):
     """The aggregate map of strict JAX's own windows: XLA's sum is the
-    left-to-right one.  The port's equals it at kappa 2, where a cell sums
-    at most two terms, so any order gives the same bits; at kappa 4 its
-    one-hot sum takes another order (C20)."""
+    left-to-right one, and the port's equals it at every kappa (C20: its
+    one-hot sum took another order once a cell summed more than two
+    terms)."""
     dt, kap, W = case
     xr, prev, nxt, cand = _twindows(dt, W)
     dwin, start, _ = segment_deltas(xr, prev, nxt, cand, W)
@@ -166,9 +183,28 @@ def test_x_window_to_y_order(strict, case):
         _sequential_segment_sum(dwin.numpy(), start.numpy(), kap), want)
     cfg = convert.config_from_dict(dataclasses.asdict(
         jc.CameoConfig(kappa=kap, lags=8, dtype=dt)))
-    got = tops.x_window_to_y(cfg, dwin, start)[0].numpy()
-    if kap == 2:
-        np.testing.assert_array_equal(got, want)
+    got, ystart = tops.x_window_to_y(cfg, dwin, start)
+    assert got.dtype == dwin.dtype
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(ystart.numpy(), start.numpy() // kap)
+
+
+def test_aus_elec_rounds_at_kappa_48_equal_strict_reference(strict):
+    """``compress()`` in rounds mode at aus_elec's kappa 48 and L 7 on 4,800
+    points: the ranking windows' cells sum 48 terms each, and the kept
+    mask, iterations, reconstruction and deviation equal strict JAX's bit
+    for bit."""
+    cfg = convert.config_from_dict(dataclasses.asdict(_aus_cfg()))
+    assert cfg.kappa == 48 and cfg.lags == 7
+    got = tc.compress(make_dataset("aus_elec", seed=0, length=AUS_N), cfg,
+                      device="cpu")
+    for f in AUS_FIELDS:
+        want = strict[f"aus/{f}"]
+        g = np.asarray(getattr(got, f).numpy())
+        assert g.dtype == want.dtype and g.shape == want.shape, f
+        assert np.array_equal(np.atleast_1d(g).view(np.uint8),
+                              np.atleast_1d(want).view(np.uint8)), f
+    assert int(got.iters) > 10
 
 
 if __name__ == "__main__":

@@ -1,8 +1,9 @@
 """The port's serving engine and launcher (``repro_torch.serving.engine``,
 ``repro_torch.launch.serve``) against the JAX package's, on the CPU.
 
-Greedy tokens equal JAX's ``Engine`` for smollm-135m and qwen3-0.6b
-reduced (float32, the reference's weights carried across), EOS included;
+Greedy tokens equal JAX's ``Engine`` for smollm-135m, qwen3-0.6b and the
+MoE, Mamba2 and hybrid archs reduced (float32, the reference's weights
+carried across), EOS included;
 identical prompts give identical rows; sampled generation is deterministic
 for a seed and in range (its draws are torch's, not ``jax.random``'s, so
 they are not compared with the reference's); the launcher runs tiny on the
@@ -52,7 +53,9 @@ def _prompts(vocab, B=3, S=16, seed=0):
         0, vocab, size=(B, S)).astype(np.int32)
 
 
-@pytest.mark.parametrize("arch", ("smollm-135m", "qwen3-0.6b"))
+@pytest.mark.parametrize("arch", ("smollm-135m", "qwen3-0.6b",
+                                  "qwen3-moe-235b-a22b", "kimi-k2-1t-a32b",
+                                  "mamba2-2.7b", "jamba-1.5-large-398b"))
 def test_greedy_tokens_equal_reference(arch):
     port, ref, vocab = _pair(arch)
     prompts = _prompts(vocab)
@@ -126,3 +129,12 @@ def test_launcher_runs_tiny_on_cpu(capsys):
     again = serve.main(["--arch", "qwen3-0.6b", "--device", "cpu", "--batch",
                         "2", "--prompt-len", "12", "--new-tokens", "3"])
     np.testing.assert_array_equal(again["tokens"], out["tokens"])
+
+
+@pytest.mark.parametrize("arch", ("qwen3-moe-235b-a22b", "kimi-k2-1t-a32b",
+                                  "mamba2-2.7b", "jamba-1.5-large-398b"))
+def test_launcher_serves_the_moe_and_mamba_families(arch, capsys):
+    out = serve.main(["--arch", arch, "--device", "cpu", "--batch", "2",
+                      "--prompt-len", "12", "--new-tokens", "3"])
+    assert out["tokens"].shape == (2, 3)
+    assert f"{arch}-reduced on cpu" in capsys.readouterr().out

@@ -74,6 +74,50 @@ def test_chip_smoke_serving_rehearsal():
     assert set(out["launches"].values()) == {0}
 
 
+# the MoE and Mamba2 phase tiny: the reduced configs, qwen3-moe at two
+# layers with the chunked prefill forced (attn_chunk 16 at S = 32)
+TINY_ZOO = dict(
+    reduced=True,
+    moe=dict(layers=2, attn_chunk=16, B=2, S=32, new=4, keep=12,
+             pruned_steps=2, cache_B=2, cache_prefill=16, cache_steps=4,
+             a2a_B=2, a2a_S=16),
+    mamba=dict(B=2, S=32, new=4, cache_B=2, cache_prefill=20,
+               cache_steps=4),
+    small=dict(small_B=2, small_S=16, small_new=4))
+
+
+def test_chip_smoke_serving_zoo_rehearsal():
+    """chip_smoke.py's MoE and Mamba2 phase at a tiny size on the CPU:
+    qwen3-moe's generation, its per-layer drops at prefill, the KV
+    selection, the float32 cache path and ``moe_apply_a2a`` on a gloo rank;
+    mamba2's generation and cache path (a prefill ending inside a chunk);
+    the four reduced configs against themselves; no kernel is counted."""
+    sys.path.insert(0, ROOT)
+    import chip_smoke
+    lines = []
+    out = chip_smoke.run_serving_zoo("cpu", sizes=TINY_ZOO, log=lines.append)
+    steps = [(r["step"], r.get("arch", "")[:5]) for r in out["rows"]]
+    assert steps == [("generate", "qwen3"), ("kv_prune", ""),
+                     ("cache_path", "qwen3"), ("moe_a2a", "qwen3"),
+                     ("generate", "mamba"), ("cache_path", "mamba")] + \
+        [("small", a[:5]) for a in chip_smoke.SERVE_ZOO_SMALL]
+    assert all(ln.startswith("serve {") for ln in lines)
+    gen, sel, cache, a2a, mgen, mcache = out["rows"][:6]
+    assert gen["chunked_prefill"] and len(gen["dropped_at_prefill"]) == 2
+    assert gen["capacity"] == 16 and gen["assignments_a_layer"] == 2 * 32 * 2
+    assert sel["lanes"] == 2 * 2 and sel["kept_equal_cpu"]
+    for row in (cache, a2a, mcache):
+        assert row["max_abs_err"] <= row["tol"] * row.get(
+            "logits_rms", row.get("rms"))
+    assert cache["layers"] == 1 and a2a["backend"] == "gloo"
+    assert not mgen["chunked_prefill"] and mcache["prefill_S"] == 20
+    for small in out["rows"][6:]:
+        assert small["rows_equal"] == 2
+        if "moe" in small["arch"] or "kimi" in small["arch"]:
+            assert small["routes_parted"] == 0
+    assert set(out["launches"].values()) == {0}
+
+
 def _keys(B, S, K, dh, seed=0):
     rng = np.random.default_rng(seed)
     scale = np.exp(0.3 * rng.standard_normal((B, S, 1, 1)))

@@ -1,19 +1,23 @@
 #!/usr/bin/env python3
 """Profile the port's serving path: where a decode step's time goes.
 
-    python3 tools/profile_serving.py [--device cuda|cpu] [--reduced]
+    python3 tools/profile_serving.py [--arch qwen3-0.6b] [--layers N]
+                                     [--device cuda|cpu] [--reduced]
                                      [--batch 8] [--prompt-len 2048]
                                      [--steps 8]
 
-qwen3-0.6b (its published width in bfloat16, or ``--reduced``), weights
-from seed 0: a prefill of ``--batch`` prompts of ``--prompt-len`` tokens,
+``--arch`` (default qwen3-0.6b) at its published width in bfloat16 (or
+``--reduced``), cut to ``--layers`` blocks of its pattern if given,
+weights from seed 0 (drawn on the card there: other values than the CPU's
+draw, as chip_smoke's zoo phase draws them): a prefill of ``--batch``
+prompts of ``--prompt-len`` tokens,
 then ``--steps`` greedy decode steps.  It counts the PyTorch operations
 one decode step dispatches (a ``TorchDispatchMode`` counter; the count is
 the same on any device) and, on the card, profiles the prefill and the
 decode steps with torch.profiler: wall s, the card's busy s and idle share,
 kernel launches a step and the kernels that take the most device time.
 One ``profile_serving {...}`` line, the profiler's tables in
-``chiprun_out/profile_serving_{prefill,decode}.txt``.  Prints the card's
+``chiprun_out/profile_serving_<arch>_{prefill,decode}.txt``.  Prints the card's
 name and power limit first; ``--device cuda`` without a card exits
 non-zero.  It imports nothing of JAX or of the JAX package.
 """
@@ -21,6 +25,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import json
 import sys
 import time
@@ -77,6 +82,8 @@ def _breakdown(prof, wall: float, steps: int, name: str) -> dict:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=ARCH)
+    ap.add_argument("--layers", type=int, default=None)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--batch", type=int, default=8)
@@ -87,8 +94,13 @@ def main(argv=None) -> int:
     if device.type == "cuda":
         print(nvidia_smi())
         torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = get_reduced(ARCH) if args.reduced else get_config(ARCH)
-    params = init_params(model_defs(cfg), 0, device, cfg.pdtype())
+    cfg = get_reduced(args.arch) if args.reduced else get_config(args.arch)
+    if args.layers is not None:
+        n = args.layers // len(cfg.pattern)
+        cfg = dataclasses.replace(cfg, n_blocks=n, remainder=(),
+                                  n_layers=n * len(cfg.pattern))
+    params = init_params(model_defs(cfg), 0, device, cfg.pdtype(),
+                         draw="device" if device.type == "cuda" else "cpu")
     B, S, steps = args.batch, args.prompt_len, args.steps
     tokens = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab, size=(B, S))).long().to(device)
@@ -124,13 +136,13 @@ def main(argv=None) -> int:
             logits, caches = run_prefill()
             _sync(device)
             wall = time.perf_counter() - t0
-        row["prefill"] = _breakdown(prof, wall, 1, "prefill")
+        row["prefill"] = _breakdown(prof, wall, 1, f"{args.arch}_prefill")
         with profile(activities=acts) as prof:
             t0 = time.perf_counter()
             run_decode(logits, caches, S)
             _sync(device)
             wall = time.perf_counter() - t0
-        row["decode"] = _breakdown(prof, wall, steps, "decode")
+        row["decode"] = _breakdown(prof, wall, steps, f"{args.arch}_decode")
     else:
         _sync(device)
         t0 = time.perf_counter()
