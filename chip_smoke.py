@@ -30,7 +30,14 @@ Phases, each of which fails the run (non-zero exit) on a wrong result:
    with its interior count); cell_sum (the Eq. 9 windows' cells in XLA's
    segment-sum order, C20) at aus_elec's tiers B and C (kappa 48, float64),
    on 4 lanes and in float32, held exactly and timed beside an
-   ``index_add_``; prefix_sum (the Eq. 7 moments' and the dense
+   ``index_add_``; segment_cells (every path's Eq. 9 delta windows from
+   the segments' endpoints to their cells, C19 and C20) at both datasets'
+   tiers B and C, on ``KERNEL_LANES`` lanes (each lane against its launch
+   alone) and in float32 with int64 candidates, on the neighbours of an
+   alive mask with segments past W, every output held exactly and timed
+   beside its plain version and the pair it replaces (``segment_deltas``
+   then ``x_window_to_y``), device time and a synchronised call's wall;
+   prefix_sum (the Eq. 7 moments' and the dense
    update's prefix sums: one row, the pair of rows the main path launches,
    and pairs of 1, 17, 4,097 and 65,537 values) held exactly to its plain
    version on the CPU (XLA's cumsum order, jnp.cumsum's bits) and timed
@@ -159,8 +166,9 @@ Phases, each of which fails the run (non-zero exit) on a wrong result:
    equal but at near-ties, counted);
 5. the lock-step check — a scan round on uk_elec from one carry on the
    card: the greedy branch with the prefix_devs kernel and with its plain
-   version must take the same candidates; then the seconds of each phase
-   and a ``{"kernels": [...]}`` line;
+   version must take the same candidates; segment_cells launched on each
+   of ``SEGMENT_CELLS_PATHS``; then the seconds of each phase and a
+   ``{"kernels": [...]}`` line (each kernel's launches also by path);
 6. the last line, ``{"ok": true, "device": {...}}``.
 
 The torch.profiler breakdowns of the main paths and the pass that finds
@@ -204,6 +212,8 @@ from repro_torch.core import streaming  # noqa: E402
 from repro_torch.core.acf import (acf, acf_from_aggregates,  # noqa: E402
                                   aggregate_series, extract_aggregates,
                                   pacf_from_acf)
+from repro_torch.core.aggregates import (alive_neighbors,  # noqa: E402
+                                         segment_deltas)
 from repro_torch.data.synthetic import (dataset_cameo_kwargs,  # noqa: E402
                                         make_dataset)
 from repro_torch.kernels import _build  # noqa: E402
@@ -216,6 +226,7 @@ from repro_torch.kernels import lag_dot as _lag_dot  # noqa: E402
 from repro_torch.kernels import ops as _ops  # noqa: E402
 from repro_torch.kernels import prefix_sum as _prefix_sum  # noqa: E402
 from repro_torch.kernels import ref as _ref  # noqa: E402
+from repro_torch.kernels import segment_cells as _segcells  # noqa: E402
 from repro_torch.kernels import segment_scan as _segscan  # noqa: E402
 from repro_torch.models import moe as _moe  # noqa: E402
 from repro_torch.models import moe_a2a as _moe_a2a  # noqa: E402
@@ -241,7 +252,8 @@ WRAPPERS = {"lag_dot": _lag_dot.lag_dot_cuda,
             "prefix_sum": _prefix_sum.prefix_sum_cuda,
             "dense_sxx": _dense_sxx.dense_sxx_cuda,
             "segment_scan": _segscan.segment_scan_cuda,
-            "cell_sum": _cell_sum.cell_sum_cuda}
+            "cell_sum": _cell_sum.cell_sum_cuda,
+            "segment_cells": _segcells.segment_cells_cuda}
 # each kernel's wrapper as its callers look it up: (module, attribute)
 CALLERS = {"acf_window_impact": ((_ops, "acf_window_impact_cuda"),),
            "window_rows": ((_fused, "window_rows_cuda"),),
@@ -252,7 +264,8 @@ CALLERS = {"acf_window_impact": ((_ops, "acf_window_impact_cuda"),),
            "prefix_sum": ((_ops, "prefix_sum_cuda"),),
            "dense_sxx": ((_ops, "dense_sxx_cuda"),),
            "segment_scan": ((_functional, "segment_scan_cuda"),),
-           "cell_sum": ((_ops, "cell_sum_cuda"),)}
+           "cell_sum": ((_ops, "cell_sum_cuda"),),
+           "segment_cells": ((_ops, "segment_cells_cuda"),)}
 SOURCES = {"lag_dot": "src/repro_torch/kernels/csrc/lag_dot.cu",
            "acf_impact": "src/repro_torch/kernels/csrc/acf_impact.cu",
            "window_rows": "src/repro_torch/kernels/csrc/window_rows.cu",
@@ -262,7 +275,8 @@ SOURCES = {"lag_dot": "src/repro_torch/kernels/csrc/lag_dot.cu",
            "prefix_sum": "src/repro_torch/kernels/csrc/prefix_sum.cu",
            "dense_sxx": "src/repro_torch/kernels/csrc/dense_sxx.cu",
            "segment_scan": "src/repro_torch/kernels/csrc/segment_scan.cu",
-           "cell_sum": "src/repro_torch/kernels/csrc/cell_sum.cu"}
+           "cell_sum": "src/repro_torch/kernels/csrc/cell_sum.cu",
+           "segment_cells": "src/repro_torch/kernels/csrc/segment_cells.cu"}
 REPLACES = {"lag_dot": "src/repro/kernels/lag_dot.py:42",
             "acf_impact": "src/repro/kernels/acf_impact.py:93",
             "window_rows": "src/repro/kernels/fused_round.py:276",
@@ -278,7 +292,11 @@ REPLACES = {"lag_dot": "src/repro/kernels/lag_dot.py:42",
             # kernel
             "segment_scan": "src/repro/baselines/functional.py:36",
             # XLA's jax.ops.segment_sum in x_window_to_y, no Pallas kernel
-            "cell_sum": "src/repro/kernels/ops.py:256"}
+            "cell_sum": "src/repro/kernels/ops.py:256",
+            # the reference's segment_deltas and, at kappa > 1, XLA's
+            # segment_sum in x_window_to_y, no Pallas kernel
+            "segment_cells": "src/repro/core/aggregates.py:298 + "
+                             "src/repro/kernels/ops.py:256"}
 # Each output is held to its plain version elementwise: |got - want| <=
 # rtol |want| + floor max|want|.  The floor scales with the output, so an
 # output of the wrong scale (zeros, say) fails whatever the inputs' size.
@@ -293,7 +311,7 @@ TOL = {"lag_dot": (0.0, 0.0), "acf_impact": (0.0, 0.0),
        "window_rows": (0.0, 0.0), "acf_window_impact": (0.0, 0.0),
        "prefix_devs": (0.0, 0.0), "prefix_sum": (0.0, 0.0),
        "dense_sxx": (0.0, 0.0), "segment_scan": (0.0, 0.0),
-       "cell_sum": (0.0, 0.0),
+       "cell_sum": (0.0, 0.0), "segment_cells": (0.0, 0.0),
        # cell_sum's library yardstick (index_add_, atomics in the card's
        # order) sums a cell's at most kappa terms in another order
        "cell_sum_index_add": (1e-12, 1e-12),
@@ -310,14 +328,19 @@ EPS = 1e-2
 # launches, whether its CR is held within 5% of the CPU path's)
 PATHS = {
     "rounds": (dict(), ("lag_dot", "prefix_sum", "dense_sxx", "acf_impact",
-                        "window_rows"), True),
+                        "window_rows", "segment_cells"), True),
     "scan": (dict(select="scan"), ("lag_dot", "prefix_sum", "dense_sxx",
                                    "acf_impact", "window_rows",
-                                   "prefix_devs"), False),
+                                   "prefix_devs", "segment_cells"), False),
     "sequential": (dict(mode="sequential", hops=24, window=64),
                    ("lag_dot", "prefix_sum", "acf_impact",
-                    "acf_window_impact"), True),
+                    "acf_window_impact", "segment_cells"), True),
 }
+# the paths whose runs must launch segment_cells (the Eq. 9 windows of every
+# path, at every kappa), as the {"kernels"} line's launches_by_path names
+# them
+SEGMENT_CELLS_PATHS = ("rounds", "scan", "sequential", "batch",
+                       "partitioned", "stream", "serving_selection")
 # the batch phase (``compress_batch``): (dataset, lanes, whether each lane
 # is held against its per-series ``compress_rounds`` run on the card in the
 # same call); uk_elec at B = 64 is timed only (its per-series runs would
@@ -687,6 +710,7 @@ def phase_kernels(device, name: str, length=None) -> list:
             for c in prefix_cases(device, name, length)]
     if cfg.kappa > 1:
         out += cell_sum_entries(device, name, length)
+    out += segment_cells_entries(device, name, length)
     for r in out:
         r["dataset"] = name
     if name == DATASETS[0]:
@@ -846,6 +870,175 @@ def cell_sum_entries(device, name: str, length=None) -> list:
     for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
         vals = [r[key] for r in rows[:2]]
         main[key] = None if None in vals else sum(vals)
+    main["max_abs_err"] = max(r["max_abs_err"] for r in rows)
+    return [main] + rows[2:]
+
+
+def host_ms(fn, device, reps: int = 21):
+    """Median wall time of one synchronised call of ``fn`` in ms, the host's
+    dispatch included (None on the CPU)."""
+    if device.type != "cuda":
+        return None
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(times)
+
+
+def segment_geometry(rng, n: int, W: int, lanes=None):
+    """``(prev, nxt)`` of an alive mask over ``n`` points (each of
+    ``lanes`` lanes its own): the endpoints alive, the gaps between alive
+    points half of 1-8 points, half of 9 to 2W (segments past W present)."""
+    rows = []
+    for _ in range(lanes or 1):
+        m = n // 4 + 2
+        gaps = np.where(rng.random(m) < 0.5, rng.integers(1, 9, m),
+                        rng.integers(9, 2 * W + 1, m))
+        alive = np.zeros(n, dtype=bool)
+        pos = np.cumsum(gaps)
+        alive[pos[pos < n]] = True
+        alive[0] = alive[-1] = True
+        rows.append(alive)
+    alive = torch.from_numpy(np.stack(rows) if lanes else rows[0])
+    return alive_neighbors(alive)
+
+
+def segment_candidates(rng, prev: torch.Tensor, nxt: torch.Tensor, K: int,
+                       lo: int, hi: int) -> np.ndarray:
+    """``K`` candidates of one lane: the two endpoints, then alive points
+    whose segment after removal spans ``lo..hi`` points (7 in 8) or more
+    than ``hi`` (1 in 8), drawn with repeats."""
+    p, q = prev.numpy(), nxt.numpy()
+    n = p.shape[0]
+    idx = np.arange(n)
+    alive = np.zeros(n, dtype=bool)
+    alive[q[q < n]] = True
+    alive[0] = alive[-1] = True
+    span = q - p - 1
+    inner = idx[alive & (span >= lo) & (span <= hi)]
+    over = idx[alive & (span > hi)]
+    inner = inner if inner.size else idx[alive]
+    over = over if over.size else inner
+    take = rng.random(K) < 7 / 8
+    out = np.where(take, rng.choice(inner, K), rng.choice(over, K))
+    out[:2] = (0, n - 1)
+    return out
+
+
+def segment_cells_bound(xr, prev, nxt, cand, W: int, kappa: int):
+    """Bytes these inputs need: each candidate, p and q at it, x at the
+    two endpoints and at the min(span, W) interior points its window
+    covers, and the cells, ystart and span written; operations: 6 a term
+    (the index conversion, the division, the FMA's two, the subtraction and
+    the mask) and at kappa > 1 an add a term and a division a cell."""
+    it = xr.element_size()
+    i = torch.as_tensor(cand)
+    span = (_ref.gather_clamped(nxt, i) - _ref.gather_clamped(prev, i) - 1)
+    covered = float(torch.clamp(span, 0, W).sum())
+    R = span.numel()
+    Wy = W // kappa + 2 if kappa > 1 else W
+    nbytes = R * (i.element_size() + 8 + 2 * it + Wy * it + 8) + covered * it
+    flops = R * W * 6.0 + (R * (W + Wy) if kappa > 1 else 0.0)
+    return bound_ms(nbytes, flops, _peak(xr.dtype))
+
+
+def segment_cells_hold(what: str, args) -> float:
+    """segment_cells' kernel against its plain version on ``args`` (xr,
+    prev, nxt, cand, W, kappa): every output bit for bit, the x-space
+    window too, and cells that are not all zero; the cells' max abs
+    error."""
+    got = _segcells.segment_cells_cuda(*args, x_window=True)
+    want = _segcells.segment_cells_plain(*args, x_window=True)
+    for part, g, w in zip(("cells", "ystart", "span", "dwin", "start"), got,
+                          want):
+        require(_same_bits(g, w),
+                f"{what}: {part} not the plain version's bits")
+    return check_close(what, "segment_cells", got[0], want[0])
+
+
+def segment_cells_entries(device, name: str, length=None) -> list:
+    """segment_cells against its plain version at tolerance 0 on ``name``'s
+    rounds shapes (tier B's and tier C's capacities, windows of
+    ``_TIER_SMALL_W`` and ``window`` points, float64, int32 candidates; one
+    entry for the round's two launches), the tier C shape on
+    ``KERNEL_LANES`` lanes (each lane also against its one-lane launch) and
+    in float32 with int64 candidates (the scan's); the geometry is the
+    neighbours of an alive mask over the dataset's bucket with segments
+    past W, the endpoints among the candidates.  Timed beside its plain
+    version and the pair it replaces on the card (``segment_deltas`` and
+    ``x_window_to_y``), device time and a synchronised call's wall."""
+    cfg = cameo.CameoConfig(eps=EPS, **dataset_cameo_kwargs(name))
+    kap, W, WB = cfg.kappa, cfg.window, cameo._TIER_SMALL_W
+    x = make_dataset(name, seed=0, length=length)
+    n = (x.shape[0] // kap) * kap
+    nb = cameo._round_bucket(n, cfg)
+    xp = np.pad(x[:n], (0, nb - n))
+    rng = np.random.default_rng(11)
+    KB, KC = min(nb, max(24, nb // 24)), min(nb, max(16, nb // 48))
+    lanes = KERNEL_LANES.get(name, 1)
+    cases = (("tier B", None, KB, WB, 2, torch.float64, np.int32),
+             ("tier C", None, KC, W, WB + 1, torch.float64, np.int32),
+             ("tier C lanes", lanes, KC, W, WB + 1, torch.float64, np.int32),
+             ("tier C float32", None, KC, W, WB + 1, torch.float32,
+              np.int64))
+    rows = []
+    for label, B, K, Wx, lo, dt, idt in cases:
+        prev, nxt = segment_geometry(rng, nb, Wx, B)
+        if B:
+            xr = torch.from_numpy(np.stack([np.roll(xp, 97 * b)
+                                            for b in range(B)]))
+            cand = np.stack([segment_candidates(rng, prev[b], nxt[b], K, lo,
+                                                Wx) for b in range(B)])
+        else:
+            xr = torch.from_numpy(xp)
+            cand = segment_candidates(rng, prev, nxt, K, lo, Wx)
+        ci = torch.from_numpy(cand.astype(idt))
+        # the bound reads the candidates at the width the kernel reads
+        bnd, by = segment_cells_bound(xr.to(dt), prev, nxt, ci, Wx, kap)
+        xr = xr.to(device=device, dtype=dt)
+        prev, nxt, ci = prev.to(device), nxt.to(device), ci.to(device)
+        args = (xr, prev, nxt, ci, Wx, kap)
+        what = f"{name} segment_cells {label} (kappa={kap}, W={Wx})"
+        err = segment_cells_hold(what, args)
+        if B:
+            require_lanes(what, _segcells.segment_cells_cuda(*args)[0],
+                          lambda b: _segcells.segment_cells_cuda(
+                              xr[b], prev[b], nxt[b], ci[b], Wx, kap)[0])
+
+        def kernel():
+            return _segcells.segment_cells_cuda(*args)
+
+        def plain():
+            return _segcells.segment_cells_plain(*args)
+
+        def pair():
+            return _ops.x_window_to_y(cfg, *segment_deltas(
+                xr, prev, nxt, ci, Wx)[:2])
+        Wy = Wx // kap + 2 if kap > 1 else Wx
+        shape = (f"{label}: {f'{B}x' if B else ''}{K} windows W={Wx} Wy={Wy} "
+                 f"kappa={kap} {str(dt)[6:]} {np.dtype(idt).name} "
+                 f"candidates, spans {lo}..{Wx} and past")
+        rows.append(dict(
+            name="segment_cells", shape=shape, max_abs_err=err,
+            ms=device_ms(kernel, device),
+            plain_ms=device_ms(plain, device, reps=3, inner=5),
+            pair_ms=device_ms(pair, device, reps=3, inner=5),
+            wall_ms=host_ms(kernel, device),
+            pair_wall_ms=host_ms(pair, device),
+            library_ms=None, bound_ms=bnd, bound_by=by))
+    # the round's two launches (tiers B and C) as one entry, first
+    main = dict(rows[0])
+    main["shape"] = rows[0]["shape"] + " + " + rows[1]["shape"]
+    for key in ("ms", "plain_ms", "pair_ms", "wall_ms", "pair_wall_ms",
+                "bound_ms"):
+        vals = [r[key] for r in rows[:2]]
+        main[key] = None if None in vals else sum(vals)
+    main["bound_by"] = max(rows[:2], key=lambda r: r["bound_ms"])["bound_by"]
     main["max_abs_err"] = max(r["max_abs_err"] for r in rows)
     return [main] + rows[2:]
 
@@ -1289,8 +1482,7 @@ def check_guarantee(what: str, x: np.ndarray, xr: np.ndarray,
 def _path_cfg(name: str, path: str):
     over, kernels, held = PATHS[path]
     cfg = cameo.CameoConfig(eps=EPS, **dataset_cameo_kwargs(name), **over)
-    # the Eq. 9 windows' cell sums run on every path where kappa > 1
-    return cfg, kernels + (("cell_sum",) if cfg.kappa > 1 else ()), held
+    return cfg, kernels, held
 
 
 def first_differing_pop(device, cfg, x: np.ndarray) -> dict:
@@ -2114,9 +2306,11 @@ def phase_facade(device, tmp: Path, sizes=None, log=print) -> dict:
          bytes_equal_batch=True)
     counts = read_counts()
     if device.type == "cuda":
-        # every compress path runs here; segment_scan serves the baselines
+        # every compress path runs here; segment_scan serves the baselines,
+        # and no path launches cell_sum (segment_cells sums the cells)
         for kname in WRAPPERS:
-            require(counts[kname] > 0 or kname == "segment_scan",
+            require(counts[kname] > 0 or kname in ("segment_scan",
+                                                   "cell_sum"),
                     f"facade: kernel {kname} was never launched")
     return dict(steps=steps, launches=counts)
 
@@ -2228,7 +2422,8 @@ def phase_partitioned(device, name: str, T: int, length=None,
         obs.OBS.enabled = was
     chunks = -(-(x.shape[0] // T) // cfg.impact_chunk)
     if device.type == "cuda":
-        for kname in ("lag_dot", "prefix_sum", "acf_window_impact"):
+        for kname in ("lag_dot", "prefix_sum", "acf_window_impact",
+                      "segment_cells"):
             require(row["launches"][kname] > 0,
                     f"{what}: kernel {kname} was never launched")
         require(row["launches"]["acf_window_impact"]
@@ -2636,7 +2831,11 @@ SERVE_SMALL_TOL = 1e-4
 SERVE_BF16_TOL = 1e-1
 # the kernels CAMEO's selection launches (compress_batch's rounds path)
 SERVE_KERNELS = ("lag_dot", "prefix_sum", "dense_sxx", "acf_impact",
-                 "window_rows")
+                 "window_rows", "segment_cells")
+# the KV selection's first segment_cells launches rank only slots in the
+# bucket's zero padding: its hold takes the first launch with cells that
+# are not all zero (the predicate syncs the card until one is recorded)
+SERVE_KEEP = {"segment_cells": lambda out: bool(torch.any(out[0] != 0))}
 
 
 def _sync(device) -> None:
@@ -2696,30 +2895,33 @@ def _serve_generate(device, cfg, params, sz, init_s, log) -> tuple:
     return row, prompts, toks
 
 
-def _recorder(wrapper, calls: list, limit):
+def _recorder(wrapper, calls: list, limit, keep):
     def recording(*a, **kw):
         out = wrapper(*a, **kw)
         # a wrapper that its own module calls by this attribute counted on
         # the recorder: the count goes to the wrapper
         wrapper.launches += recording.launches
         recording.launches = 0
-        if limit is None or len(calls) < limit:
+        if (limit is None or len(calls) < limit) and (keep is None
+                                                      or keep(out)):
             calls.append((tuple(_clone(t) for t in a),
                           {k: _clone(v) for k, v in kw.items()},
-                          out.clone()))
+                          _clone(out)))
         return out
     recording.launches = 0
     return recording
 
 
 @contextlib.contextmanager
-def record_launches(names, limit=None):
+def record_launches(names, limit=None, keep=None):
     """Within the block, the wrappers of the kernels ``names`` record their
-    launches (at most ``limit`` of each) as (arguments, keywords, output),
-    cloned, into the yielded dict's lists; they launch and count as ever."""
-    got, saved = {k: [] for k in names}, []
+    launches (at most ``limit`` of each, and of a kernel named in ``keep``
+    only those whose output its predicate takes) as (arguments, keywords,
+    output), cloned, into the yielded dict's lists; they launch and count as
+    ever."""
+    got, saved, keep = {k: [] for k in names}, [], keep or {}
     for kname in names:
-        rec = _recorder(WRAPPERS[kname], got[kname], limit)
+        rec = _recorder(WRAPPERS[kname], got[kname], limit, keep.get(kname))
         for mod, attr in CALLERS[kname]:
             saved.append((mod, attr, getattr(mod, attr)))
             setattr(mod, attr, rec)
@@ -2731,6 +2933,8 @@ def record_launches(names, limit=None):
 
 
 def _clone(v):
+    if isinstance(v, tuple):
+        return tuple(_clone(t) for t in v)
     return v.clone() if isinstance(v, torch.Tensor) else v
 
 
@@ -2747,7 +2951,8 @@ def _finite_err(a: torch.Tensor, b: torch.Tensor) -> float:
 
 def serving_kernel_entries(device, rec: dict) -> list:
     """Each kernel's first launch in the KV selection (``rec``, from
-    :func:`record_launches`), on its recorded inputs (the main path's
+    :func:`record_launches`; segment_cells' first with cells that are not
+    all zero, ``SERVE_KEEP``), on its recorded inputs (the main path's
     shapes): a second launch gives the recorded bits, and those equal its
     plain version's (tolerance 0); timed beside its plain version and,
     where one exists, a PyTorch call.  Launches here are not counted by
@@ -2762,6 +2967,30 @@ def serving_kernel_entries(device, rec: dict) -> list:
                  dense_sxx_entry(device, "serving", *a, lanes=a[0].shape[0]))
             require(_same_bits(WRAPPERS[kname](*a, **kw), res),
                     f"serving {kname}: a second launch gave other bits")
+            out.append(dict(e, dataset="serving"))
+            continue
+        if kname == "segment_cells":
+            # every output held, the x-space window too, on cells that are
+            # not all zero; timed beside the pair it replaces
+            xr, prev, nxt, cand, W, kap = a[:6]
+            what = "serving segment_cells"
+            err = segment_cells_hold(what, a[:6])
+            require(all(_same_bits(g, r) for g, r in zip(
+                WRAPPERS[kname](*a, **kw), res)),
+                f"{what}: a second launch gave other bits")
+            shape = (f"B={xr.shape[0]} lanes x K={cand.shape[-1]} W={W} "
+                     f"kappa={kap} n={xr.shape[-1]} {str(xr.dtype)[6:]}")
+            cfg = cameo.CameoConfig(kappa=kap)
+            e = _lanes_entry(
+                kname, shape, err,
+                device_ms(lambda: WRAPPERS[kname](*a[:6]), device),
+                device_ms(lambda: _segcells.segment_cells_plain(*a[:6]),
+                          device, reps=3, inner=3),
+                segment_cells_bound(xr.cpu(), prev.cpu(), nxt.cpu(),
+                                    cand.cpu(), W, kap), xr.shape[0])
+            e.update(pair_ms=device_ms(lambda: _ops.x_window_to_y(
+                cfg, *segment_deltas(xr, prev, nxt, cand, W)[:2]), device,
+                reps=3, inner=3))
             out.append(dict(e, dataset="serving"))
             continue
         fn = WRAPPERS[kname]
@@ -2831,7 +3060,7 @@ def _serve_prune(device, cfg, params, prompts, toks, sz, pool, log) -> dict:
     obs.OBS.enabled = True
     try:
         reset_counts()
-        with record_launches(SERVE_KERNELS, limit=1) as rec:
+        with record_launches(SERVE_KERNELS, limit=1, keep=SERVE_KEEP) as rec:
             _sync(device)
             t0 = time.perf_counter()
             pruned = kv_prune.prune_tree(caches, keep, lags)
@@ -3485,14 +3714,13 @@ def run_phases(device, *, uk_length=None, aus_length=None,
         log(f"launch_floor ms={floor} (an empty kernel, built and bound as the "
             f"port's kernels are)")
         runs = []
-        totals = dict.fromkeys(WRAPPERS, 0)
+        counted = dict(launches=dict.fromkeys(WRAPPERS, 0), by_path={})
         t0 = time.perf_counter()
         # the card-only runs first, while the CPU runs go on beside them
         card_only = []
         for name, n in seq_full:
             row = phase_main(device, name, "sequential", n, cpu_check=False)
-            for kname, c in row["launches"].items():
-                totals[kname] += c
+            add_launches(counted, "sequential", row["launches"])
             card_only.append(row)
             log("main " + json.dumps(row))
         for path in PATHS:
@@ -3502,8 +3730,7 @@ def run_phases(device, *, uk_length=None, aus_length=None,
                 row = phase_main(device, name, path, length,
                                  cpu_check=cpu_check,
                                  cpu_ref=refs.get((name, path)))
-                for kname, c in row["launches"].items():
-                    totals[kname] += c
+                add_launches(counted, path, row["launches"])
                 runs.append(row)
                 log("main " + json.dumps(row))
         runs += card_only
@@ -3526,8 +3753,7 @@ def run_phases(device, *, uk_length=None, aus_length=None,
             batch_rows.append(row)
             log("multivariate " + json.dumps(row))
         for row in batch_rows:
-            for kname, c in row["launches"].items():
-                totals[kname] += c
+            add_launches(counted, row["path"], row["launches"])
         seconds["batch"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         reset_counts()
@@ -3535,14 +3761,12 @@ def run_phases(device, *, uk_length=None, aus_length=None,
                              cpu_check=cpu_check, log=log)
         for row in stream["rows"]:
             for r in (row.get("depths") or {}).values():
-                for kname, c in r["launches"].items():
-                    totals[kname] += c
-            for kname, c in (row.get("launches") or {}).items():
-                totals[kname] += c
+                add_launches(counted, "stream", r["launches"])
+            add_launches(counted, "stream", row.get("launches") or {})
         seconds["stream"] = time.perf_counter() - t0
         return dict(kernels=kernels, runs=runs, batches=batch_rows,
-                    streams=stream, launches=totals, launch_floor_ms=floor,
-                    seconds=seconds)
+                    streams=stream, launch_floor_ms=floor, seconds=seconds,
+                    **counted)
     finally:
         if pool is not None:
             pool.shutdown(wait=True, cancel_futures=True)
@@ -3555,6 +3779,7 @@ def kernel_rows(report, names=tuple(WRAPPERS)) -> list:
     ``max_abs_err`` is the largest over all of them.  Fails where the
     report holds no entry of one of them."""
     rows = []
+    by_path = report.get("by_path", {})
     for name in names:
         ks = [k for k in report["kernels"] if k["name"] == name]
         require(ks, f"kernel {name} has no phase-3 entry")
@@ -3562,13 +3787,25 @@ def kernel_rows(report, names=tuple(WRAPPERS)) -> list:
         rows.append(dict(
             name=name, route="cuda", source=SOURCES[name],
             replaces=REPLACES[name], launches=report["launches"][name],
+            launches_by_path={path: c[name] for path, c in by_path.items()
+                              if c.get(name)},
             max_abs_err=max(k["max_abs_err"] for k in ks), ms=first["ms"],
             plain_ms=first["plain_ms"], bound_ms=first["bound_ms"],
             bound_by=first["bound_by"], library_ms=first["library_ms"],
             shapes=[{key: k[key] for key in (
                 "dataset", "shape", "max_abs_err", "ms", "plain_ms",
-                "bound_ms", "bound_by", "library_ms")} for k in ks]))
+                "bound_ms", "bound_by", "library_ms", "pair_ms", "wall_ms",
+                "pair_wall_ms") if key in k} for k in ks]))
     return rows
+
+
+def add_launches(report, path: str, counts: dict) -> None:
+    """Add a phase's launch counts to ``report``'s totals and to its
+    ``by_path[path]``."""
+    mine = report["by_path"].setdefault(path, dict.fromkeys(WRAPPERS, 0))
+    for kname, c in counts.items():
+        report["launches"][kname] += c
+        mine[kname] += c
 
 
 def nvidia_smi() -> str:
@@ -3642,9 +3879,11 @@ def main() -> int:
     zoo = run_serving_zoo(device)
     seconds["serving_zoo"] = zoo["seconds"]
     for part in (srv, zoo):
-        for kname, c in part["launches"].items():
-            report["launches"][kname] += c
+        add_launches(report, "serving_selection", part["launches"])
         report["kernels"] += part["kernels"]
+    for path in SEGMENT_CELLS_PATHS:
+        require(report["by_path"].get(path, {}).get("segment_cells", 0) > 0,
+                f"segment_cells was never launched on the {path} path")
     print(nvidia_smi())
     t0 = time.perf_counter()
     print("lockstep " + json.dumps(scan_lockstep(device)))
@@ -3664,20 +3903,17 @@ def run_more_phases(device, report, seconds, bl_refs) -> dict:
     holds into its kernel entries, their seconds into ``seconds``."""
     facade = run_facade(device)
     seconds["facade"] = facade["seconds"]
-    for kname, c in facade["launches"].items():
-        report["launches"][kname] += c
+    add_launches(report, "facade", facade["launches"])
     print("facade " + json.dumps(dict(steps=facade["steps"],
                                       launches=facade["launches"],
                                       seconds=facade["seconds"])))
     part = run_partitioned(device)
     seconds["partitioned"] = part["seconds"]
-    for kname, c in part["launches"].items():
-        report["launches"][kname] += c
+    add_launches(report, "partitioned", part["launches"])
     bl = run_baselines(device, refs=bl_refs)
     seconds["baselines"] = bl["seconds"]
     seconds["segment_scan_holds"] = bl["seconds_with_holds"] - bl["seconds"]
-    for kname, c in bl["launches"].items():
-        report["launches"][kname] += c
+    add_launches(report, "baselines", bl["launches"])
     report["kernels"] += bl["kernels"]
     for k in bl["kernels"]:
         print(f"kernel {k['name']} {k['dataset']} [{k['shape']}] "

@@ -206,7 +206,9 @@ def segment_deltas(xr: torch.Tensor, prev: torch.Tensor, nxt: torch.Tensor,
     (prev[i], nxt[i]) re-interpolated on the line between its endpoints.
 
     Returns ``(dwin [..., W], start [...], span [...])`` with deltas zero
-    beyond the span (spans > W are truncated).
+    beyond the span (spans > W are truncated).  The paths take these
+    windows from ``kernels.ops.segment_cells`` (its kernel on the card);
+    this is its plain version's first half, with :func:`segment_interp`.
     """
     dt = xr.dtype
     vals, absj, start, span = segment_interp(xr, prev, nxt, i, W)

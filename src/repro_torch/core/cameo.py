@@ -60,7 +60,6 @@ from repro_torch.core.aggregates import (
     apply_delta_window,
     interpolate_at,
     neighbors_after_removal,
-    segment_deltas,
 )
 from repro_torch.kernels import fused_round as _fused
 from repro_torch.kernels import ops as _ops
@@ -335,8 +334,7 @@ def _round_fns(cfg: CameoConfig, nb: int, n_valid: torch.Tensor,
                            idx.expand(B, nb))
             slots = slots[:, :cap]
             cand = torch.clamp(slots, 0, nb - 1)
-            dwin, start, _ = segment_deltas(xr, prev, nxt, cand, Wt)
-            dyw, ystart = _ops.x_window_to_y(cfg, dwin, start)
+            dyw, ystart, _ = _ops.segment_cells(cfg, xr, prev, nxt, cand, Wt)
             dyw = dyw.to(rdt).contiguous()
             if use_kernel:
                 imp = _fused.window_rows_cuda(
@@ -494,8 +492,8 @@ def _round_fns(cfg: CameoConfig, nb: int, n_valid: torch.Tensor,
             ok = torch.gather(sel_surv, 1, sel_idx) & rank_ok
 
             if cfg.select == "scan":
-                dwin_k, start_k, _ = segment_deltas(xr, prev, nxt, sel_idx, W)
-                dyw_k, ystart_k = _ops.x_window_to_y(cfg, dwin_k, start_k)
+                dyw_k, ystart_k, _ = _ops.segment_cells(cfg, xr, prev, nxt,
+                                                        sel_idx, W)
                 if use_kernel:
                     # the greedy walk on the exact running reconstruction
                     # (the TPU's branch); the dense check gates the round,
@@ -840,8 +838,8 @@ def _sequential_fns(cfg: CameoConfig, n: int, p0: torch.Tensor):
         best = imp[i]
         p, q = prev[i], nxt[i]
         # exact Eq. 9 trial removal of point i (segment (p, q))
-        dwin, start, span = segment_deltas(xr, prev, nxt, i, W)
-        dyw, ystart = _ops.x_window_to_y(cfg, dwin, start)
+        dyw, ystart, span, dwin, start = _ops.segment_cells(
+            cfg, xr, prev, nxt, i, W, x_window=True)
         tbl_t = apply_delta_window(tbl, y, dyw, ystart, W=Wy, L=L)
         dev_t = mfn(transform(acf_from_aggregates(tbl_t, ny)), p0)
         finite = torch.isfinite(best)

@@ -6,9 +6,13 @@ products, Algorithm-2 single-delta impacts (Eq. 8), exact windowed impacts
 Backends, chosen per call and plumbed from ``CameoConfig.backend``:
 
 * ``"cuda"``      — the hand-written kernels (``lag_dot``, ``prefix_sum``,
-  ``dense_sxx``, ``cell_sum``, ``acf_impact``, ``acf_window_impact``,
-  ``fused_round.window_rows_cuda`` and ``fused_round.prefix_devs_cuda``).  Asking for it with CPU tensors
-  raises.
+  ``dense_sxx``, ``segment_cells``, ``acf_impact``, ``acf_window_impact``,
+  ``fused_round.window_rows_cuda`` and ``fused_round.prefix_devs_cuda``).
+  Asking for it with CPU tensors raises.  Every path's Eq. 9 delta windows
+  come from :func:`segment_cells` (its kernel on the card);
+  :func:`x_window_to_y` and ``core.aggregates.segment_deltas`` are the
+  pair it replaces, kept as its plain version (and ``cell_sum`` as
+  ``x_window_to_y``'s kernel, which no path launches).
 * ``"reference"`` — the plain PyTorch forms, on whatever device the
   tensors lie.
 * ``"auto"``      — the kernels for card tensors, the plain forms for CPU
@@ -36,6 +40,8 @@ from repro_torch.kernels.cell_sum import cell_sum_cuda, cell_sum_plain
 from repro_torch.kernels.dense_sxx import dense_sxx_cuda, dense_sxx_plain
 from repro_torch.kernels.lag_dot import lag_dot_cuda, lag_dot_plain
 from repro_torch.kernels.prefix_sum import prefix_sum_cuda, prefix_sum_plain
+from repro_torch.kernels.segment_cells import (segment_cells_cuda,
+                                               segment_cells_plain)
 
 BACKENDS = ("auto", "cuda", "reference")
 
@@ -222,7 +228,7 @@ def _rank_window(cfg, agg, y_ctx, xr_c, alive_c, p0, off_y, ny: int):
     the table, ``p0`` and ``ny`` are global).  Returns ``(impact,
     overgrown)``, ``[T, mx]`` each: candidates whose segment outgrew the
     static window ``W`` keep their truncated-window value here."""
-    from repro_torch.core.aggregates import alive_neighbors, segment_deltas
+    from repro_torch.core.aggregates import alive_neighbors
     dt = cfg.tdtype()
     L, W = cfg.lags, cfg.window
     T, mx = xr_c.shape
@@ -236,8 +242,8 @@ def _rank_window(cfg, agg, y_ctx, xr_c, alive_c, p0, off_y, ny: int):
     imps, spans = [], []
     for c in range(0, mx, chunk):
         ci = idx[c:c + chunk].expand(T, -1)
-        dwin, start, span = segment_deltas(xr_c, prev, nxt, ci, W)
-        dyw, ystart = x_window_to_y(cfg, dwin, start)      # [T, k, Wy]
+        dyw, ystart, span = segment_cells(cfg, xr_c, prev, nxt, ci,
+                                          W)                # [T, k, Wy]
         Wy = dyw.shape[-1]
         k = torch.arange(Wy + 2 * L, device=dev)
         rows = _ref.take(y_ctx, ystart[..., None] + k).reshape(-1, Wy + 2 * L)
@@ -286,11 +292,9 @@ def window_impact_at(cfg, agg, y, xr, prev, nxt, cand, p0):
     """Exact (Eq. 9) ranking impact of removing each point in ``cand`` (the
     sequential mode's ReHeap).  Overgrown segments and the series
     endpoints rank +inf."""
-    from repro_torch.core.aggregates import segment_deltas
     n = xr.shape[0]
     L, W = cfg.lags, cfg.window
-    dwin, start, span = segment_deltas(xr, prev, nxt, cand, W)
-    dyw, ystart = x_window_to_y(cfg, dwin, start)
+    dyw, ystart, span = segment_cells(cfg, xr, prev, nxt, cand, W)
     k = torch.arange(dyw.shape[1] + 2 * L, device=y.device)
     rows = F.pad(y, (L, L + W))[ystart[:, None] + k]
     imp = _window_rows_impact(
@@ -305,6 +309,19 @@ def window_impact_at(cfg, agg, y, xr, prev, nxt, cand, p0):
 # Eq. 9 — x-space delta windows onto the target series
 # ---------------------------------------------------------------------------
 
+def segment_cells(cfg, xr: torch.Tensor, prev: torch.Tensor,
+                  nxt: torch.Tensor, i, W: int, *, x_window: bool = False):
+    """The Eq. 9 delta windows of removing the candidates ``i`` on the
+    target series: ``(dyw [..., Wy], ystart [...], span [...])``, what
+    ``x_window_to_y(cfg, *segment_deltas(xr, prev, nxt, i, W)[:2])`` and
+    the span give (``kernels/segment_cells.py``: one launch of its kernel
+    on the card, the pair itself on the CPU, the same bits);
+    ``x_window=True`` appends the x-space window and its start."""
+    if resolve_backend(getattr(cfg, "backend", "auto"), xr.device) == "cuda":
+        return segment_cells_cuda(xr, prev, nxt, i, W, cfg.kappa, x_window)
+    return segment_cells_plain(xr, prev, nxt, i, W, cfg.kappa, x_window)
+
+
 def x_window_to_y(cfg, dwin: torch.Tensor, start: torch.Tensor):
     """Map x-space delta windows onto the target (aggregate) series.
 
@@ -314,6 +331,9 @@ def x_window_to_y(cfg, dwin: torch.Tensor, start: torch.Tensor):
     cell left to right from +0 and divided by kappa once, as strict XLA
     runs the reference's ``segment_sum`` (``kernels/cell_sum.py``: the
     kernel on the card, the plain version on the CPU, the same bits).
+    No path calls it: :func:`segment_cells` computes the windows and their
+    cells in one launch on the card, and its plain version is this map
+    after ``core.aggregates.segment_deltas``.
     """
     kap = cfg.kappa
     if kap == 1:

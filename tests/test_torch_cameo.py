@@ -385,10 +385,10 @@ def test_chip_smoke_phases_rehearsal():
     # prefix_sum's one row and pair of rows (and, with uk_elec, its pairs
     # of four more lengths); the window kernels: the main cases (with
     # acf_window_impact's partitioned ranking chunk), then a boundary-heavy
-    # one each; with uk_elec, dense_sxx at min_temp's 365 lags, with
-    # aus_elec (kappa 48) cell_sum's tiers, lanes and float32; then the
-    # five kernels of the rounds path on lanes (prefix_devs at uk_elec
-    # only)
+    # one each; segment_cells' tiers, lanes and float32 (after cell_sum's,
+    # at aus_elec's kappa 48), then with uk_elec dense_sxx at min_temp's 365
+    # lags; then the five kernels of the rounds path on lanes (prefix_devs
+    # at uk_elec only)
     assert [(k["dataset"], k["name"]) for k in report["kernels"]] == [
         (d if k != "dense_sxx 365" else "min_temp", k.split()[0])
         for d in ("uk_elec", "aus_elec")
@@ -396,7 +396,8 @@ def test_chip_smoke_phases_rehearsal():
         + ("dense_sxx", "acf_impact", "window_rows", "window_rows")
         + ("acf_window_impact",) * 3
         + ("acf_impact", "prefix_devs", "prefix_devs")
-        + (("dense_sxx 365",) if d == "uk_elec" else ("cell_sum",) * 3)
+        + (("segment_cells",) * 3 + ("dense_sxx 365",) if d == "uk_elec"
+           else ("cell_sum",) * 3 + ("segment_cells",) * 3)
         ] + [
         (d, k) for d in ("uk_elec", "aus_elec")
         for k in ("lag_dot", "prefix_sum", "dense_sxx", "acf_impact",
@@ -424,7 +425,7 @@ def test_chip_smoke_phases_rehearsal():
     assert [r["name"] for r in rows] == names
     with pytest.raises(chip_smoke.SmokeFailure, match="segment_scan"):
         chip_smoke.kernel_rows(report)
-    assert [len(r["shapes"]) for r in rows] == [4, 6, 6, 6, 5, 10, 5, 3]
+    assert [len(r["shapes"]) for r in rows] == [4, 6, 6, 6, 5, 10, 5, 3, 6]
     ps = [k for k in report["kernels"] if k["name"] == "prefix_sum"]
     assert [k["shape"].split(" x n=")[1] for k in ps[2:6]] == [
         f"{n} float64" for n in chip_smoke.PREFIX_SUM_LENGTHS]

@@ -181,7 +181,8 @@ def test_chip_smoke_serving_kernel_holds_rehearsal(monkeypatch):
     """chip_smoke's holds of the KV selection's kernels, rehearsed on the
     CPU: with the dispatch forced to the wrappers (which take their plain
     versions for CPU tensors), ``record_launches`` records every launch of
-    each of the five kernels, or its first with ``limit=1``, and
+    each of the six kernels, or its first with ``limit=1`` (segment_cells'
+    first with cells that are not all zero, ``SERVE_KEEP``), and
     ``serving_kernel_entries`` replays and holds each; the wrappers' counts
     are left as they were."""
     sys.path.insert(0, ROOT)
@@ -194,16 +195,20 @@ def test_chip_smoke_serving_kernel_holds_rehearsal(monkeypatch):
     before = chip_smoke.read_counts()
     with chip_smoke.record_launches(chip_smoke.SERVE_KERNELS) as every:
         idx = kv_prune.select_from_series(sig, 16)
-    with chip_smoke.record_launches(chip_smoke.SERVE_KERNELS,
-                                    limit=1) as rec:
+    with chip_smoke.record_launches(chip_smoke.SERVE_KERNELS, limit=1,
+                                    keep=chip_smoke.SERVE_KEEP) as rec:
         assert np.array_equal(kv_prune.select_from_series(sig, 16), idx)
     assert chip_smoke.read_counts() == before
     assert sorted(rec) == sorted(chip_smoke.SERVE_KERNELS)
     for kname, calls in rec.items():
         assert len(calls) == 1 and len(every[kname]) >= 1
         a, kw, out = calls[0]
-        a0, kw0, out0 = every[kname][0]
-        assert torch.equal(out, out0) and kw.keys() == kw0.keys()
+        keep = chip_smoke.SERVE_KEEP.get(kname, lambda o: True)
+        a0, kw0, out0 = next(c for c in every[kname] if keep(c[2]))
+        # segment_cells gives a tuple of tensors, the others one tensor
+        outs, outs0 = ((o,) if torch.is_tensor(o) else o for o in (out, out0))
+        assert len(outs) == len(outs0) and kw.keys() == kw0.keys()
+        assert all(torch.equal(u, v) for u, v in zip(outs, outs0))
     monkeypatch.undo()
     np.testing.assert_array_equal(idx, kv_prune.select_from_series(sig, 16))
     entries = chip_smoke.serving_kernel_entries(torch.device("cpu"), rec)

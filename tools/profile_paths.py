@@ -36,8 +36,7 @@ sys.path.insert(0, str(ROOT / "src"))
 from chip_smoke import (EPS, SEQ_LENGTHS, WRAPPERS, _path_cfg,  # noqa: E402
                         batch_series, nvidia_smi, require)
 from repro_torch.core import cameo  # noqa: E402
-from repro_torch.core.aggregates import (interpolate_at,  # noqa: E402
-                                         segment_deltas)
+from repro_torch.core.aggregates import interpolate_at  # noqa: E402
 from repro_torch.data.synthetic import (dataset_cameo_kwargs,  # noqa: E402
                                         make_dataset)
 from repro_torch.kernels import _build  # noqa: E402
@@ -230,9 +229,8 @@ def _ranking_keys(carry, p0, cfg, n: int, points) -> dict:
             key = float(single[i])
         elif span <= W:
             cand = torch.tensor([i], dtype=torch.int32, device=dev)
-            dwin, start, _ = segment_deltas(xr, prev, nxt, cand,
-                                            WB if span <= WB else W)
-            dyw, ystart = _ops.x_window_to_y(cfg, dwin, start)
+            dyw, ystart, _ = _ops.segment_cells(cfg, xr, prev, nxt, cand,
+                                                WB if span <= WB else W)
             key = float(_fused.window_rows_cuda(
                 yr, dyw.float().contiguous(), ystart.contiguous(), tr, ny,
                 pr, L=L, measure=cfg.measure)[0])
