@@ -163,7 +163,23 @@ Phases, each of which fails the run (non-zero exit) on a wrong result:
    (1e-3 x RMS); mamba2-2.7b whole, generation and a float32 cache path
    (a 1,000-token prefill ending inside a chunk); the reduced qwen3-moe,
    kimi-k2, mamba2 and jamba configs card against CPU (1e-4 x RMS; routes
-   equal but at near-ties, counted);
+   equal but at near-ties, counted).  Then the training phase
+   (``run_training``): uk_elec compressed by ``compress()`` on the card
+   (its rounds path's kernels counted, the guarantee held), decompressed,
+   tokenized against the raw series (2,048 codes) into 65 windows of
+   1,024; musicgen-large at its published width (48 layers, d 2,048,
+   bfloat16, remat "full", AdamW with bfloat16 state, weights drawn on the
+   card from seed 0) trained by ``train_loop`` at B = 8 for 1 + 6 timed
+   steps (finite losses, the last below the first), then 3 steps with the
+   stacked leaves read as views [i]; a ``train {...}`` line with the
+   compress's CR, seconds and launches, the losses, the median step s,
+   tokens/s, peak memory, the step's operations (``train_ops``) and their
+   share of the bfloat16 dense peak; the reduced config (float32, the
+   CPU draw) 4 steps on the card and in a CPU worker (losses within
+   ``TRAIN_LOSS_TOL`` relative, every leaf within ``TRAIN_LEAF_TOL`` x its
+   largest |value|); its 8-step run against 4 steps, a checkpoint, a restore and
+   4 more, bit-equal under ``torch.use_deterministic_algorithms``; and
+   ``launch.train.main`` for 3 steps of the reduced config on the card;
 5. the lock-step check — a scan round on uk_elec from one carry on the
    card: the greedy branch with the prefix_devs kernel and with its plain
    version must take the same candidates; segment_cells launched on each
@@ -183,8 +199,11 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import copy
 import dataclasses
+import math
 import multiprocessing
+import os
 import json
 import statistics
 import subprocess
@@ -234,10 +253,17 @@ from repro_torch.models.attention import KVCache  # noqa: E402
 from repro_torch.configs.base import layer_ctx  # noqa: E402
 from repro_torch.models.model import (_index, decode_step,  # noqa: E402
                                       forward, model_defs, prefill)
-from repro_torch.models.params import init_params  # noqa: E402
+from repro_torch.data.pipeline import (SeriesTokenizer,  # noqa: E402
+                                       forecast_batches, series_windows)
+from repro_torch.launch import train as _launch_train  # noqa: E402
+from repro_torch.launch.specs import default_train_config  # noqa: E402
+from repro_torch.models.params import count_params, init_params  # noqa: E402
 from repro_torch.serving import kv_prune  # noqa: E402
 from repro_torch.serving.engine import Engine, ServeConfig  # noqa: E402
 from repro_torch.store import CameoStore  # noqa: E402
+from repro_torch.train.loop import LoopConfig, train_loop  # noqa: E402
+from repro_torch.train.step import TrainConfig, build_train_step  # noqa: E402
+from repro_torch.tree import leaves, leaves_with_path  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
 HBM_BYTES_PER_S = 3.35e12
@@ -782,12 +808,20 @@ def window_rows_entry(device, name: str, c: dict) -> dict:
     measure; one phase-3 entry, timed under mae."""
     K, Wy, L, args = c["K"], c["Wy"], c["L"], c["args"]
     err = 0.0
+    cfg, _, _ = _path_cfg(name, "rounds")
     for measure in MEASURES:
+        got = _fused.window_rows_cuda(*args, L=L, measure=measure)
         err = max(err, check_close(
             f"{name} window_rows {c['label']} (K={K}, Wy={Wy}, {measure})",
-            "window_rows", _fused.window_rows_cuda(*args, L=L,
-                                                   measure=measure),
+            "window_rows", got,
             _fused.window_rows_plain(*args, L=L, measure=measure)))
+        # the public dispatch (the reference's fused_round.window_rows) is
+        # the wrapper's launch on the card
+        disp = _fused.window_rows(dataclasses.replace(cfg, measure=measure),
+                                  *args[:5], L=L, p0=args[5])
+        require(_same_bits(disp, got),
+                f"{name} window_rows {c['label']} ({measure}): the dispatch "
+                f"differs from the wrapper")
     bnd, by = window_rows_bound(K, Wy, L, c["nyb"])
     return dict(
         name="window_rows",
@@ -1166,6 +1200,15 @@ def acf_impact_entry(device, name: str, c: dict) -> dict:
             f"{name} acf_impact {c['label']} ({measure})", "acf_impact",
             _acf_impact.acf_impact_cuda(*args, measure=measure, **kw),
             _acf_impact.acf_impact_plain(*args, measure=measure, **kw)))
+        if c["kappa"] == 1 and args[1].shape[-1] == args[0].shape[-1]:
+            # the public dispatch (the reference's ops.acf_impact: every
+            # point, its full length) is the wrapper's launch on the card
+            want = _acf_impact.acf_impact_cuda(*args, L=c["L"],
+                                               measure=measure)
+            require(_same_bits(_ops.acf_impact(*args, measure=measure),
+                               want),
+                    f"{name} acf_impact {c['label']} ({measure}): the "
+                    f"dispatch differs from the wrapper")
     bnd, by = c["bound"]
     return dict(
         name="acf_impact", shape=c["shape"], max_abs_err=err,
@@ -3580,6 +3623,295 @@ def run_serving_zoo(device, sizes=None, log=print) -> dict:
                 seconds=time.perf_counter() - t0)
 
 
+# ---------------------------------------------------------------------------
+# the training phase: musicgen-large trained on a CAMEO-compressed series
+# ---------------------------------------------------------------------------
+
+# musicgen-large at its published width (configs/musicgen_large.py: 48
+# layers, d 2,048, 32 heads of 64, d_ff 8,192, vocab 2,048, bfloat16,
+# remat "full"), weights drawn on the card from seed 0, trained on uk_elec
+# compressed by the port's compress() on the card: windows of S = 1,024
+# tokens at stride 256, B = 8, one warm-up step and ``steps - 1`` timed
+# ones (peak lr 3e-4, warmup 2, as launch/train.py sets them); the step
+# with the stacked leaves read as views [i] for ``index_steps``; the
+# reduced config card against a CPU worker for ``small_steps``; the
+# reduced config's resume on the card; the launcher.
+TRAIN = dict(arch="musicgen-large", reduced=False, series="uk_elec",
+             length=None, B=8, S=1024, stride=256, steps=7, index_steps=3,
+             peak_lr=3e-4, warmup=2, small_B=8, small_S=128,
+             small_stride=64, small_steps=4, resume_steps=8,
+             launcher_steps=3)
+# the reduced config card against CPU (float32, the CPU draw on both
+# sides, TF32 off): each step's loss within TRAIN_LOSS_TOL relative, every
+# leaf after the last step within TRAIN_LEAF_TOL x the leaf's largest
+# |value|.  The first reading (NVIDIA H100 80GB HBM3, 700 W): losses 8.1e-8
+# relative (one float32 step), the worst leaf 3.9e-6 (blocks/sub0/mlp/wo)
+# after 4 steps; the holds sit ~12x above them.
+TRAIN_LOSS_TOL = 1e-6
+TRAIN_LEAF_TOL = 5e-5
+BF16_PEAK_FLOPS = 989e12    # H100 SXM bfloat16 dense, at the 700 W limit
+
+
+@contextlib.contextmanager
+def deterministic():
+    """``torch.use_deterministic_algorithms(True)`` within the block (an
+    operation with no deterministic form raises and names itself)."""
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(prev)
+
+
+def train_ops(cfg, B: int, S: int) -> dict:
+    """Operations of one train step of an attention-only ``cfg`` on [B, S]
+    tokens, counted from the config: 6 x the matrix parameters (the
+    "linear" leaves: no embedding table, norm or bias) x tokens for the
+    dense products (forward 2, backward 4), the attention's two
+    S x S products a layer at 2 B S^2 H dh each (the port computes the
+    whole square, in float32), backward twice the forward, and under
+    ``remat="full"`` one more forward of the blocks."""
+    mats = sum(math.prod(d.shape) for d in _def_leaves(model_defs(cfg))
+               if d.init == "linear")
+    lm = 0 if cfg.tie_embeddings else cfg.d_model * cfg.vocab
+    T = B * S
+    attn_fwd = 2 * 2 * B * S * S * cfg.n_heads * cfg.head_dim * cfg.n_layers
+    recompute = cfg.remat == "full"
+    dense = 6 * mats * T + (2 * (mats - lm) * T if recompute else 0)
+    attn = attn_fwd * (3 + (1 if recompute else 0))
+    return dict(dense_bf16=dense, attention_f32=attn, total=dense + attn,
+                bound_s=dense / BF16_PEAK_FLOPS + attn / FP32_FLOPS)
+
+
+def _def_leaves(defs):
+    if isinstance(defs, dict):
+        for v in defs.values():
+            yield from _def_leaves(v)
+    else:
+        yield defs
+
+
+def train_windows(series: np.ndarray, recon: np.ndarray, vocab: int,
+                  S: int, stride: int) -> np.ndarray:
+    """The reconstruction's tokens (a codebook fit on the raw series) cut
+    into windows of ``S``."""
+    tok = SeriesTokenizer.fit(series, vocab)
+    return series_windows(tok.encode(recon), window=S, stride=stride)
+
+
+def _small_train_config(sz):
+    cfg = get_reduced(sz["arch"])
+    tcfg = TrainConfig(optimizer=default_train_config(cfg).optimizer,
+                       peak_lr=sz["peak_lr"], warmup=sz["warmup"],
+                       total_steps=sz["small_steps"])
+    return cfg, tcfg
+
+
+def train_small(device, windows: np.ndarray, sz) -> dict:
+    """The reduced config (float32, the CPU draw) trained ``small_steps``
+    steps on ``device``: each step's loss and every leaf after the last."""
+    device = torch.device(device)
+    cfg, tcfg = _small_train_config(sz)
+    params = init_params(model_defs(cfg), 0, device)
+    lcfg = LoopConfig(steps=sz["small_steps"], log_every=1)
+    params, _, hist = train_loop(
+        cfg, tcfg, lcfg, params, lambda step: forecast_batches(
+            windows, sz["small_B"], step, device=device))
+    return dict(losses=[h["loss"] for h in hist],
+                leaves=_leaf_arrays(params))
+
+
+def _leaf_arrays(tree) -> dict:
+    return {"/".join(str(k) for k in path): t.detach().cpu().numpy()
+            for path, t in leaves_with_path(tree)}
+
+
+def _train_full(device, sz, windows, log) -> dict:
+    """The full-width model's steps (the unbind form through
+    ``train_loop``, then the [i] form), their times, losses and peak
+    memory."""
+    cfg = (get_reduced if sz["reduced"] else get_config)(sz["arch"])
+    B, S, steps = sz["B"], sz["S"], sz["steps"]
+    tcfg = TrainConfig(optimizer=default_train_config(cfg).optimizer,
+                       peak_lr=sz["peak_lr"], warmup=sz["warmup"],
+                       total_steps=steps)
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    params, init_s = _zoo_params(cfg, device)
+    # a step's seconds: from one logged step to the next (the loop reads
+    # each step's metrics, which waits for the card), the batch included
+    marks = [time.perf_counter()]
+    params, opt, hist = train_loop(
+        cfg, tcfg, LoopConfig(steps=steps, log_every=1), params,
+        lambda step: forecast_batches(windows, B, step, device=device),
+        log_fn=lambda step, m: marks.append(time.perf_counter()))
+    times = [float(t) for t in np.diff(marks)]
+    loop_s = marks[-1] - marks[0]
+    losses = [h["loss"] for h in hist]
+    require(len(losses) == steps and all(np.isfinite(losses)),
+            f"train: losses {losses} are not {steps} finite values")
+    require(losses[-1] < losses[0],
+            f"train: the loss did not fall ({losses[0]} -> {losses[-1]})")
+    mem = torch.cuda.max_memory_allocated() if device.type == "cuda" else None
+    # the stacked leaves read as views [i], on from the same state
+    index_fn = build_train_step(cfg, tcfg, unbind=False)
+    index_times, index_losses = [], []
+    for i in range(sz["index_steps"]):
+        t1 = time.perf_counter()
+        params, opt, m = index_fn(params, opt, forecast_batches(
+            windows, B, steps + i, device=device), steps + i)
+        index_losses.append(float(m["loss"]))
+        index_times.append(time.perf_counter() - t1)
+    require(all(np.isfinite(index_losses)),
+            f"train: the [i] form's losses {index_losses} are not finite")
+    step_s = statistics.median(times[1:]) if len(times) > 1 else times[0]
+    index_s = statistics.median(index_times[1:]) if len(index_times) > 1 \
+        else index_times[0]
+    ops = train_ops(cfg, B, S)
+    row = dict(arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
+               param_dtype=cfg.param_dtype, remat=cfg.remat,
+               optimizer=tcfg.optimizer,
+               params=count_params(model_defs(cfg)), B=B, S=S,
+               windows=int(windows.shape[0]), init_s=init_s, steps=steps,
+               losses=losses, step_s=times, median_step_s=step_s,
+               tokens_per_s=B * S / step_s, loop_s=loop_s,
+               max_memory_allocated=mem, ops=ops,
+               share_of_bf16_peak=ops["total"] / step_s / BF16_PEAK_FLOPS,
+               bound_share=ops["bound_s"] / step_s,
+               index_step_s=index_times, index_median_step_s=index_s,
+               index_losses=index_losses)
+    del params, opt
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return row
+
+
+def _train_resume(device, sz, windows, tmp: Path) -> dict:
+    """The reduced config on ``device``: an unbroken ``resume_steps``-step
+    loop against half of it with a checkpoint, a restore and the other
+    half: every parameter and optimizer leaf and every loss bit-equal (the
+    steps run deterministic)."""
+    cfg, tcfg = _small_train_config(sz)
+    n = sz["resume_steps"]
+    tcfg = dataclasses.replace(tcfg, total_steps=n)
+    p0 = init_params(model_defs(cfg), 1, device)
+
+    def bfn(step):
+        return forecast_batches(windows, sz["small_B"], step, device=device)
+    with deterministic():
+        pA, oA, hA = train_loop(cfg, tcfg, LoopConfig(steps=n, log_every=1),
+                                copy.deepcopy(p0), bfn)
+        half = LoopConfig(steps=n // 2, ckpt_dir=str(tmp), ckpt_every=n // 2,
+                          log_every=1)
+        _, _, h1 = train_loop(cfg, tcfg, half, copy.deepcopy(p0), bfn)
+        pB, oB, h2 = train_loop(cfg, tcfg, dataclasses.replace(half, steps=n),
+                                copy.deepcopy(p0), bfn)
+    la, lb = [h["loss"] for h in hA], [h["loss"] for h in h1 + h2]
+    pairs = list(zip(leaves((pA, oA)), leaves((pB, oB))))
+    same = [torch.equal(a, b) for a, b in pairs]
+    require(la == lb, f"train resume: losses {lb} != unbroken {la}")
+    require(all(same), f"train resume: {same.count(False)} of {len(same)} "
+                       f"leaves differ from the unbroken run")
+    return dict(step="resume", arch=cfg.name, steps=n, resumed_at=n // 2,
+                leaves=len(pairs), leaves_bit_equal=True, losses=la)
+
+
+def run_training(device, sizes=None, log=print) -> dict:
+    """The training phase (``TRAIN``, ``sizes`` over it): compress the
+    series on ``device`` (its path's kernels counted), decompress, tokenize
+    and window it; train the model at full width (a ``train {...}`` line:
+    the compress, the losses, the step s, tokens/s, peak memory, the
+    operations and their share of the bfloat16 peak, the [i] form's step);
+    the reduced config card against a CPU worker started first; its resume
+    bit-equal; the launcher.  Returns the rows, the compress's launches and
+    the seconds."""
+    device = torch.device(device)
+    sz = dict(TRAIN, **(sizes or {}))
+    t0 = time.perf_counter()
+    cfg_c, kernels, _, x = _main_series(sz["series"], "rounds",
+                                        sz["length"])
+    _sync(device)
+    reset_counts()
+    tc = time.perf_counter()
+    res = cameo.compress(x, cfg_c, device=device)
+    xr = cameo.decompress(*cameo.kept_points(res), x.shape[0],
+                          device=device).cpu().numpy()
+    _sync(device)
+    compress_s = time.perf_counter() - tc
+    launches = read_counts()
+    kept = res.kept.cpu().numpy()
+    check_guarantee(f"train {sz['series']}", x, res.xr.cpu().numpy(), kept,
+                    float(res.deviation), cfg_c)
+    require(np.array_equal(xr, res.xr.cpu().numpy()),
+            "train: decompress() differs from the compressor's "
+            "reconstruction")
+    if device.type == "cuda":
+        for kname in kernels:
+            require(launches[kname] > 0,
+                    f"train: kernel {kname} was never launched by compress")
+    comp = dict(series=sz["series"], n=int(x.shape[0]),
+                cr=x.shape[0] / float(kept.sum()), wall_s=compress_s,
+                launches={k: c for k, c in launches.items() if c})
+    cfg_full = (get_reduced if sz["reduced"] else get_config)(sz["arch"])
+    windows = train_windows(x, xr, cfg_full.vocab, sz["S"], sz["stride"])
+    small_windows = train_windows(x, xr, get_reduced(sz["arch"]).vocab,
+                                  sz["small_S"], sz["small_stride"])
+    pool = ref = None
+    if device.type == "cuda":
+        pool = concurrent.futures.ProcessPoolExecutor(
+            1, mp_context=multiprocessing.get_context("spawn"),
+            initializer=_cpu_worker_init, initargs=(CPU_REF_THREADS,))
+        ref = pool.submit(train_small, "cpu", small_windows, sz)
+    try:
+        full = _train_full(device, sz, windows, log)
+        full["compress"] = comp
+        log("train " + json.dumps(full))
+        card = train_small(device, small_windows, sz)
+        cpu = ref.result() if ref is not None else card
+    finally:
+        if pool is not None:
+            pool.shutdown(wait=True, cancel_futures=True)
+    rel = [abs(a - b) / abs(b) for a, b in zip(card["losses"],
+                                               cpu["losses"])]
+    leaf_err = {k: float(np.max(np.abs(card["leaves"][k].astype(np.float64)
+                                       - v), initial=0.0))
+                / max(float(np.max(np.abs(v), initial=0.0)), 1e-30)
+                for k, v in cpu["leaves"].items()}
+    worst = max(leaf_err, key=leaf_err.get)
+    small = dict(step="card_vs_cpu", arch=get_reduced(sz["arch"]).name,
+                 steps=sz["small_steps"], losses_card=card["losses"],
+                 losses_cpu=cpu["losses"], loss_rel_err=max(rel),
+                 loss_tol=TRAIN_LOSS_TOL, worst_leaf=worst,
+                 worst_leaf_rel_err=leaf_err[worst], leaf_tol=TRAIN_LEAF_TOL)
+    log("train " + json.dumps(small))
+    require(max(rel) <= TRAIN_LOSS_TOL,
+            f"train: card losses part from the CPU's by {max(rel)} relative")
+    require(leaf_err[worst] <= TRAIN_LEAF_TOL,
+            f"train: leaf {worst} parts from the CPU's by {leaf_err[worst]} "
+            f"x its largest |value|")
+    import tempfile
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        resume = _train_resume(device, sz, small_windows, Path(tmp))
+    log("train " + json.dumps(resume))
+    t1 = time.perf_counter()
+    hist = _launch_train.main(["--arch", sz["arch"], "--reduced", "--steps",
+                               str(sz["launcher_steps"]), "--device",
+                               str(device)])
+    require(len(hist) == sz["launcher_steps"]
+            and all(np.isfinite(h["loss"]) for h in hist),
+            f"train launcher: history {hist}")
+    launcher = dict(step="launcher", steps=len(hist),
+                    seconds=time.perf_counter() - t1,
+                    losses=[h["loss"] for h in hist])
+    log("train " + json.dumps(launcher))
+    if device.type == "cuda":
+        log("train card " + nvidia_smi())
+    return dict(rows=[full, small, resume, launcher], launches=launches,
+                seconds=time.perf_counter() - t0)
+
+
 def _scan_state(device, name: str, rounds: int, length=None):
     """A scan run on ``device`` stepped ``rounds`` rounds (one lane): the
     config, the round functions' arguments, p0, the carry and the next
@@ -3821,6 +4153,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 2
+    # cuBLAS's fixed workspace, which the training phase's deterministic
+    # resume needs; set before the first cuBLAS call
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
@@ -3881,6 +4216,9 @@ def main() -> int:
     for part in (srv, zoo):
         add_launches(report, "serving_selection", part["launches"])
         report["kernels"] += part["kernels"]
+    train = run_training(device)
+    seconds["training"] = train["seconds"]
+    add_launches(report, "training", train["launches"])
     for path in SEGMENT_CELLS_PATHS:
         require(report["by_path"].get(path, {}).get("segment_cells", 0) > 0,
                 f"segment_cells was never launched on the {path} path")

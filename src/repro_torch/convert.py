@@ -14,7 +14,9 @@ done)``, with ``agg`` the five per-lag aggregate rows (JAX's
 ``Aggregates``) or the packed ``[5, L]`` table.  This lets a test start the
 port from the reference's exact state.  The model zoo has weights:
 ``params_from_numpy`` turns the JAX package's parameter tree into the
-port's module, checking every key and shape.
+port's module, checking every key and shape, and
+``opt_state_from_numpy``/``opt_state_to_numpy`` carry an optimizer's state
+(``AdamWState``, ``AdafactorState``) across.
 """
 from __future__ import annotations
 
@@ -122,3 +124,44 @@ def params_from_numpy(tree: dict, cfg, device="cuda"):
         return {k: build(defs[k], node[k], path + (k,)) for k in defs}
 
     return ParamTree(build(model_defs(cfg), tree, ()))
+
+
+def _state_cls(fields):
+    from repro_torch.optim.adafactor import AdafactorState
+    from repro_torch.optim.adamw import AdamWState
+    for cls in (AdamWState, AdafactorState):
+        if tuple(fields) == cls._fields:
+            return cls
+    raise ValueError(f"not an optimizer state: fields {tuple(fields)}")
+
+
+def opt_state_from_numpy(state, device="cuda"):
+    """The port's optimizer state on ``device`` (the card unless the caller
+    passes ``"cpu"``; raises without one) from the JAX package's
+    (``AdamWState`` or ``AdafactorState`` of numpy arrays, or any
+    NamedTuple with their fields).  Each leaf keeps its dtype; ml_dtypes'
+    bfloat16 becomes ``torch.bfloat16`` (exactly, through float32)."""
+    from repro_torch.tree import tree_map
+    device = _device(device)
+
+    def one(a):
+        a = np.asarray(a)
+        t = torch.from_numpy(np.array(_numpy_leaf(a), copy=True))
+        dt = torch.bfloat16 if a.dtype.name == "bfloat16" else t.dtype
+        return t.to(device=device, dtype=dt)
+
+    cls = _state_cls(state._fields)
+    return cls(*(tree_map(one, getattr(state, f)) for f in cls._fields))
+
+
+def opt_state_to_numpy(state):
+    """The port's optimizer state as the same NamedTuple of numpy arrays
+    (bfloat16 leaves widened exactly to float32: numpy has no bfloat16
+    without ml_dtypes)."""
+    from repro_torch.tree import tree_map
+
+    def one(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+    return type(state)(*(tree_map(one, v) for v in state))

@@ -32,6 +32,11 @@ class Aggregates(NamedTuple):
     sxx: torch.Tensor    # lagged product            sum_{t<=n-1-l} x_t x_{t+l}
 
 
+def lags_arange(L: int, dtype=torch.float64, device=None) -> torch.Tensor:
+    """The lags ``1..L`` as ``dtype`` values."""
+    return torch.arange(1, L + 1, dtype=dtype, device=device)
+
+
 def _moment_sums(x: torch.Tensor, L: int, n_valid, backend: str):
     from repro_torch.kernels.ops import prefix_sum  # deferred: kernels sit below core
     # one launch for both rows: on the card their chains run side by side
@@ -99,6 +104,22 @@ def acf_from_aggregates(agg, n) -> torch.Tensor:
 def acf(x: torch.Tensor, L: int) -> torch.Tensor:
     """Non-stationary ACF (Eq. 2) computed from scratch.  Shape ``[L]``."""
     return acf_from_aggregates(extract_aggregates(x, L), x.shape[0])
+
+
+def acf_stationary(x: torch.Tensor, L: int) -> torch.Tensor:
+    """Eq. (1): the stationary ACF with the global mean and variance
+    (oracle and tests), ``[L]``.  Every sum runs in XLA's row-reduce order
+    (``ref.row_sum_xla``) and the means divide exactly, as the JAX
+    reference's ``jnp.mean``/``jnp.sum`` do."""
+    n = x.shape[0]
+    mu = div_exact(row_sum_xla(x), n)
+    xc = x - mu
+    var = div_exact(row_sum_xla(xc ** 2), n)
+    l = torch.arange(1, L + 1, device=x.device)
+    t = torch.arange(n, device=x.device)
+    shifted = xc[(t[None, :] + l[:, None]) % n]                 # roll by -l
+    prods = torch.where(t[None, :] <= n - 1 - l[:, None], xc * shifted, 0.0)
+    return row_sum_xla(prods) / ((n - l).to(x.dtype) * var)
 
 
 def pacf_from_acf(r: torch.Tensor) -> torch.Tensor:

@@ -147,6 +147,15 @@ def apply_delta_window(agg, y_old: torch.Tensor, delta_win: torch.Tensor,
     return _with_deltas(agg, torch.sum(terms, dim=1))        # [5, L]
 
 
+def acf_after_single_delta(agg, y: torch.Tensor, idx: torch.Tensor,
+                           dval: torch.Tensor) -> torch.Tensor:
+    """Hypothetical ACF (Eq. 8) after adding ``dval[p]`` at ``idx[p]``,
+    independently for each p: ``[P, L]``.  Thin alias of
+    ``kernels.ref.acf_after_single_delta`` (one copy of the math, shared
+    with the ``acf_impact`` kernel's plain version)."""
+    return _ref.acf_after_single_delta(agg, y, idx, dval)
+
+
 def acf_after_window_delta_ctx(agg, y_ctx, starts, dwins, *, ny: int, off):
     """Hypothetical ACF after each candidate's windowed delta applied
     alone (vectorized Eq. 9), ``[P, L]``; the math lives in

@@ -1,1 +1,2 @@
-"""Seeded synthetic datasets (port of ``repro.data``)."""
+"""Seeded synthetic datasets and the training data pipeline (port of
+``repro.data``)."""

@@ -216,6 +216,25 @@ def window_rows_cuda(y, dyws, ystarts, agg_table, ny, p0, *, L: int,
 window_rows_cuda.launches = 0
 
 
+def window_rows(cfg, y, dyws, ystarts, agg_table, ny, *, L: int, p0=None):
+    """Backend-dispatched tier rows (the reference's
+    ``fused_round.window_rows``).  Without ``p0``: the per-candidate Eq. 9
+    ACF rows ``[..., K, L]``, as the reference returns them
+    (:func:`window_acf_rows`; no kernel writes rows).  With ``p0``: their
+    deviations from ``p0`` under ``cfg.measure``, ``[..., K]``, through the
+    ``window_rows`` kernel where it serves (float32 card tensors,
+    ``cfg.stat`` "acf", mae/rmse/cheb; ``window_rows_cuda``), else
+    :func:`window_rows_plain`: the same bits."""
+    if p0 is None:
+        return window_acf_rows(y, dyws, ystarts, agg_table, ny, L=L)
+    if y.dtype == torch.float32 and _ops._kernel_eligible(
+            cfg.backend, cfg.stat, cfg.measure, y.device):
+        return window_rows_cuda(y, dyws, ystarts, agg_table, ny, p0, L=L,
+                                measure=cfg.measure)
+    return window_rows_plain(y, dyws, ystarts, agg_table, ny, p0, L=L,
+                             measure=cfg.measure)
+
+
 # ---------------------------------------------------------------------------
 # prefix scan (select="scan")
 # ---------------------------------------------------------------------------

@@ -127,6 +127,26 @@ def prefix_sum(x: torch.Tensor, backend: str = "auto") -> torch.Tensor:
 
 
 # ---------------------------------------------------------------------------
+# Eq. 8 — single-delta impacts (Algorithm 2)
+# ---------------------------------------------------------------------------
+
+def acf_impact(y, dval, agg, p0, *, measure: str = "mae", block: int = 1024,
+               backend: str = "auto"):
+    """Algorithm-2 impacts for all points: D(ACF_after_delta_i, P0), ``[n]``
+    for a delta ``dval[i]`` at ``y[i]``.  The ``acf_impact`` kernel where
+    it serves (card tensors, mae/rmse/cheb; ``acf_impact_cuda``), else
+    ``ref.acf_impact_ref``.  ``block`` is the TPU kernel's tile and is
+    accepted for the reference's signature; the port's kernel picks its
+    own."""
+    table = agg_to_table(agg)
+    L = p0.shape[-1]
+    if _kernel_eligible(backend, "acf", measure, y.device):
+        return acf_impact_cuda(y, dval, table.contiguous(), p0, L=L,
+                               measure=measure)
+    return _ref.acf_impact_ref(y, dval, table, p0, L=L, measure=measure)
+
+
+# ---------------------------------------------------------------------------
 # Eq. 9 — windowed impacts
 # ---------------------------------------------------------------------------
 

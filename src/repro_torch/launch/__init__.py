@@ -1,1 +1,2 @@
-"""Launchers (port of ``repro.launch``): ``serve``."""
+"""Launchers (port of ``repro.launch``): ``serve``, ``train`` and
+``specs.default_train_config``."""

@@ -9,17 +9,25 @@ with a dense or MoE MLP (or none), in any pattern (the hybrid's too).
 * ``decode_step``  — one-token step against the stacked caches.
 
 The reference scans the repeated block pattern (``jax.lax.scan`` over the
-stacked block params); the port walks the block axis in a Python loop,
-reading block ``i``'s parameters and caches as views ``[i]``.  Remat
-belongs to training and is not applied; the reference's sharding
-constraints are dropped (one device; the MoE's a2a forms shard over ranks
-under ``sharding.use_sharding``).
+stacked block params); the port walks the block axis in a Python loop.
+Serving reads block ``i``'s parameters and caches as views ``[i]``.
+``forward`` with grad enabled takes each stacked leaf apart once
+(``torch.unbind``, whose backward is one ``stack``; a ``[i]`` view's
+backward writes a zero tensor the size of the whole stacked leaf, once a
+block) and applies ``cfg.remat`` to each block as the reference's
+``_remat_wrap`` does: ``full`` recomputes the block in the backward pass
+(``torch.utils.checkpoint``), ``dots`` saves the projections' 2-D
+products and recomputes the rest.  The reference's sharding constraints
+are dropped (one device; the MoE's a2a forms shard over ranks under
+``sharding.use_sharding``).
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from repro_torch.configs.base import LayerSpec, ModelConfig, layer_ctx
 from repro_torch.core.cameo import _device
@@ -205,6 +213,54 @@ def _head(cfg, params, h):
     return unembed(params.get("lm_head"), h, tied_table=tied)
 
 
+def _unbound(tree, n: int) -> list:
+    """The ``n`` blocks' trees of a stacked tree, each leaf taken apart
+    once with ``torch.unbind`` (views; one ``stack`` in the backward)."""
+    if isinstance(tree, dict):
+        parts = {k: _unbound(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return list(torch.unbind(tree, 0))
+
+
+def _block_body(cfg, positions, h, aux, block):
+    """One block of the pattern: (h, aux) with each MoE layer's aux loss
+    added in layer order, as the reference's scan carry adds it."""
+    for j, ls in enumerate(cfg.pattern):
+        h, a, _ = _apply_layer_full(cfg, ls, block[f"sub{j}"], h, positions,
+                                    want_cache=False)
+        if a is not None:       # the reference adds 0 for a dense layer
+            aux = aux + a
+    return h, aux
+
+
+_MM = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """``dots_with_no_batch_dims_saveable`` for torch: keep the outputs of
+    the 2-D products (``mm``, ``addmm``, and a ``bmm`` over a batch of one,
+    which is how ``einsum`` runs a projection), recompute the rest."""
+    if op in _MM or (op == torch.ops.aten.bmm.default
+                     and args[0].shape[0] == 1):
+        return _ckpt.CheckpointPolicy.MUST_SAVE
+    return _ckpt.CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_wrap(cfg, fn):
+    """``fn`` under ``cfg.remat`` (none | full | dots), as the reference's
+    ``_remat_wrap`` wraps its scan body."""
+    if cfg.remat == "none":
+        return fn
+    if cfg.remat == "full":
+        return functools.partial(_ckpt.checkpoint, fn, use_reentrant=False)
+    if cfg.remat == "dots":
+        return functools.partial(
+            _ckpt.checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(
+                _ckpt.create_selective_checkpoint_contexts, _save_dots))
+    raise ValueError(cfg.remat)
+
+
 def _layers(cfg, params):
     """(layer spec, its parameters, cache key, block index or None) of every
     layer in order: the blocks' pattern for each block, then the
@@ -221,15 +277,29 @@ def _layers(cfg, params):
 # public entry points
 # ---------------------------------------------------------------------------
 
-def forward(params, cfg: ModelConfig, batch):
-    """Training forward: logits [B, S, V] f32 + scalar aux loss."""
+def forward(params, cfg: ModelConfig, batch, *, unbind=None):
+    """Training forward: logits [B, S, V] f32 + scalar aux loss.
+
+    With grad enabled the blocks run under ``cfg.remat``, and each stacked
+    leaf is taken apart once (``unbind``, default: when grad is enabled);
+    ``unbind=False`` reads block ``i`` as the views ``[i]`` instead (the
+    same values; the serving form)."""
     params = as_tree(params)
+    grad = torch.is_grad_enabled()
+    unbind = grad if unbind is None else unbind
     h, positions = _embed_inputs(cfg, params, batch)
     aux = torch.zeros((), dtype=torch.float32, device=h.device)
-    for ls, p, _, _ in _layers(cfg, params):
-        h, a, _ = _apply_layer_full(cfg, ls, p, h, positions,
+    body = functools.partial(_block_body, cfg, positions)
+    if grad:
+        body = _remat_wrap(cfg, body)
+    blocks = _unbound(params["blocks"], cfg.n_blocks) if unbind else None
+    for i in range(cfg.n_blocks):
+        block = blocks[i] if unbind else _index(params["blocks"], i)
+        h, aux = body(h, aux, block)
+    for j, ls in enumerate(cfg.remainder):
+        h, a, _ = _apply_layer_full(cfg, ls, params[f"rem{j}"], h, positions,
                                     want_cache=False)
-        if a is not None:       # the reference adds 0 for a dense layer
+        if a is not None:
             aux = aux + a
     return _head(cfg, params, h), aux
 

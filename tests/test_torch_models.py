@@ -320,13 +320,19 @@ def test_bfloat16_forward_and_decode():
     """qwen3-0.6b reduced in bfloat16 parameters and activations: logits
     within 3e-2 x RMS (bfloat16 rounds every projection to 8 bits; XLA and
     torch round the products' sums differently) and equal top-1 tokens
-    where the reference's top-2 margin exceeds that tolerance."""
+    where the reference's top-2 margin exceeds that tolerance.
+
+    The weights are the port's crc32 draw (seed 0), carried into the
+    reference: the reference's own draw folds a per-process salted
+    ``hash`` of each path, so its weights, and this margin, changed from
+    process to process (max |diff| / tolerance 0.71-0.97 over
+    ``PYTHONHASHSEED`` 0-11, and 1.04 once in a tier-1 run)."""
     over = dict(param_dtype="bfloat16", activ_dtype="bfloat16")
     jcfg = dataclasses.replace(jreg.get_reduced("qwen3-0.6b"), **over)
     tcfg = dataclasses.replace(treg.get_reduced("qwen3-0.6b"), **over)
-    jp = jinit(jm.model_defs(jcfg), jax.random.PRNGKey(0),
-               param_dtype=jnp.bfloat16)
-    tp = params_from_numpy(jax.tree.map(np.asarray, jp), tcfg, "cpu")
+    tp = init_params(tm.model_defs(tcfg), 0, "cpu", torch.bfloat16)
+    jp = jax.tree.map(lambda t: jnp.asarray(t.float().numpy(), jnp.bfloat16),
+                      tp.tree())
     assert tp.tree()["blocks"]["sub0"]["attn"]["q"].dtype == torch.bfloat16
     jb = token_batch(jcfg, B, S, step=0)
     tb = _tbatch(jb)
