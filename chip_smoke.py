@@ -179,7 +179,18 @@ Phases, each of which fails the run (non-zero exit) on a wrong result:
    ``TRAIN_LOSS_TOL`` relative, every leaf within ``TRAIN_LEAF_TOL`` x its
    largest |value|); its 8-step run against 4 steps, a checkpoint, a restore and
    4 more, bit-equal under ``torch.use_deterministic_algorithms``; and
-   ``launch.train.main`` for 3 steps of the reduced config on the card;
+   ``launch.train.main`` for 3 steps of the reduced config on the card.
+   Then the data-parallel phase (``run_training_dp``): the explicit
+   data-parallel step (``train.dp_shardmap``) on a process group of one
+   NCCL rank, musicgen-large at the same width and batch on the training
+   phase's windows, ``CompressConfig()``'s topk at ratio 0.05: one
+   warm-up step, whose every leaf holds ``sent + residual == g + r`` bit
+   for bit and keeps at least its ``k`` entries, then 3 timed ones (finite
+   losses; ``dp {...}`` lines: the median step s, tokens/s, peak memory,
+   the codec's device ms a step and its share, the recorded all-reduces
+   and their bytes); codec ``"none"`` bit-equal to ``adamw_update`` at
+   ``peak_lr`` on ``loss_fn``'s plain gradients, under deterministic
+   algorithms;
 5. the lock-step check — a scan round on uk_elec from one carry on the
    card: the greedy branch with the prefix_devs kernel and with its plain
    version must take the same candidates; segment_cells launched on each
@@ -255,6 +266,8 @@ from repro_torch.models.model import (_index, decode_step,  # noqa: E402
                                       forward, model_defs, prefill)
 from repro_torch.data.pipeline import (SeriesTokenizer,  # noqa: E402
                                        forecast_batches, series_windows)
+from repro_torch.launch import analytic as _analytic  # noqa: E402
+from repro_torch.launch import collectives as _coll  # noqa: E402
 from repro_torch.launch import train as _launch_train  # noqa: E402
 from repro_torch.launch.specs import default_train_config  # noqa: E402
 from repro_torch.models.params import count_params, init_params  # noqa: E402
@@ -262,7 +275,12 @@ from repro_torch.serving import kv_prune  # noqa: E402
 from repro_torch.serving.engine import Engine, ServeConfig  # noqa: E402
 from repro_torch.store import CameoStore  # noqa: E402
 from repro_torch.train.loop import LoopConfig, train_loop  # noqa: E402
-from repro_torch.train.step import TrainConfig, build_train_step  # noqa: E402
+from repro_torch.optim.adamw import adamw_init, adamw_update  # noqa: E402
+from repro_torch.optim.compress import (CompressConfig,  # noqa: E402
+                                        init_residuals)
+from repro_torch.train import dp_shardmap as _dp  # noqa: E402
+from repro_torch.train.step import (TrainConfig, _grads,  # noqa: E402
+                                    build_train_step)
 from repro_torch.tree import leaves, leaves_with_path  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -2902,6 +2920,24 @@ def serving_cpu_select(keys: np.ndarray, pos_ids: np.ndarray, keep: int,
                 seconds=time.perf_counter() - t0)
 
 
+def serve_bounds(cfg, B: int, S: int) -> dict:
+    """The least time one card (NVIDIA H100 80GB HBM3, 700.00 W, from the
+    datasheet) could take for ``cfg``'s prefill of ``[B, S]`` and a decode
+    step against an S-token cache, from the analytic model
+    (``launch.analytic``, one card, no model parallelism): prefill's
+    operations over the bfloat16 dense peak, decode's weight, activation
+    and cache bytes over the HBM rate."""
+    pre = _analytic.step_flops(cfg, dict(seq_len=S, global_batch=B,
+                                         kind="prefill"))["flops_global"]
+    dec = _analytic.step_hbm_bytes(cfg, dict(seq_len=S, global_batch=B,
+                                             kind="decode"), 1, model_par=1)
+    return dict(prefill_bound_ops=pre,
+                prefill_bound_s=pre / BF16_PEAK_FLOPS,
+                decode_bound_bytes=dec["hbm_bytes_per_device"],
+                decode_bound_ms=1e3 * dec["hbm_bytes_per_device"]
+                / HBM_BYTES_PER_S)
+
+
 def _serve_generate(device, cfg, params, sz, init_s, log) -> tuple:
     """Item 1: a warm and a timed greedy ``Engine.generate``; the tokens of
     both calls equal and in range.  Returns (row, prompts, tokens)."""
@@ -2933,7 +2969,10 @@ def _serve_generate(device, cfg, params, sz, init_s, log) -> tuple:
         decode_ms_per_token=1e3 * st["decode_s"] / max(st["decode_steps"], 1),
         tokens_per_s=B * new / wall, wall_s=wall, init_s=init_s,
         max_memory_allocated=(torch.cuda.max_memory_allocated(device)
-                              if device.type == "cuda" else None))
+                              if device.type == "cuda" else None),
+        **serve_bounds(cfg, B, S))
+    if device.type == "cuda":
+        row["card"] = nvidia_smi()
     log("serve " + json.dumps(row))
     return row, prompts, toks
 
@@ -3770,6 +3809,10 @@ def _train_full(device, sz, windows, log) -> dict:
     index_s = statistics.median(index_times[1:]) if len(index_times) > 1 \
         else index_times[0]
     ops = train_ops(cfg, B, S)
+    # the analytic model's count (launch.analytic, the reference's formula:
+    # the causal half of the attention square, no unembedding recompute)
+    analytic = _analytic.step_flops(cfg, dict(
+        seq_len=S, global_batch=B, kind="train"))["flops_global"]
     row = dict(arch=cfg.name, layers=cfg.n_layers, d_model=cfg.d_model,
                param_dtype=cfg.param_dtype, remat=cfg.remat,
                optimizer=tcfg.optimizer,
@@ -3779,6 +3822,9 @@ def _train_full(device, sz, windows, log) -> dict:
                tokens_per_s=B * S / step_s, loop_s=loop_s,
                max_memory_allocated=mem, ops=ops,
                share_of_bf16_peak=ops["total"] / step_s / BF16_PEAK_FLOPS,
+               analytic_ops=analytic,
+               analytic_share_of_bf16_peak=analytic / step_s
+               / BF16_PEAK_FLOPS,
                bound_share=ops["bound_s"] / step_s,
                index_step_s=index_times, index_median_step_s=index_s,
                index_losses=index_losses)
@@ -3909,7 +3955,192 @@ def run_training(device, sizes=None, log=print) -> dict:
     if device.type == "cuda":
         log("train card " + nvidia_smi())
     return dict(rows=[full, small, resume, launcher], launches=launches,
-                seconds=time.perf_counter() - t0)
+                windows=windows, seconds=time.perf_counter() - t0)
+
+
+# The data-parallel step (train/dp_shardmap.py) at the training phase's
+# width and batch, on its windows, on a process group of one rank (NCCL on
+# the card, gloo here): CompressConfig()'s topk (ratio 0.05), ``dp_warm``
+# warm-up steps (the first holds every leaf's error feedback) and
+# ``dp_steps`` timed ones; then codec "none" against the plain update.
+TRAIN_DP = dict(dp_warm=1, dp_steps=3)
+
+
+@contextlib.contextmanager
+def _one_rank_group(device):
+    """A process group of this process alone (NCCL on the card, gloo on
+    the CPU) and its 1-D ``data`` mesh."""
+    import tempfile
+
+    import torch.distributed as dist
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo",
+                                init_method=f"file://{tmp}/rdv",
+                                world_size=1, rank=0)
+        try:
+            yield _shd.mesh_1d(device.type)
+        finally:
+            dist.destroy_process_group()
+
+
+def _codec_probe(inner, device, check: bool, out: dict):
+    """A stand-in for ``dp_shardmap.compress_with_feedback`` (``inner``)
+    that times each leaf's codec with CUDA events and, with ``check``,
+    holds ``sent + residual == g + r`` bit for bit and at least ``k`` kept
+    entries (the residual's zeros) on every leaf."""
+    cuda = device.type == "cuda"
+
+    def probe(g, r, ccfg):
+        if cuda:
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+        s, r_new = inner(g, r, ccfg)
+        if cuda:
+            ev[1].record()
+            out["events"].append(ev)
+        if check:
+            require(torch.equal(s + r_new, g.float() + r),
+                    f"dp: sent + residual != g + r on a leaf of "
+                    f"{tuple(g.shape)}")
+            k = max(1, int(ccfg.ratio * g.numel()))
+            kept = int(torch.count_nonzero(r_new == 0))
+            require(kept >= k, f"dp: a leaf of {tuple(g.shape)} kept {kept} "
+                               f"< k = {k} entries")
+            out["kept_share_min"] = min(out.get("kept_share_min", 1.0),
+                                        kept / g.numel())
+            out["leaves"] = out.get("leaves", 0) + 1
+        return s, r_new
+
+    return probe
+
+
+def run_training_dp(device, windows: np.ndarray, sizes=None,
+                    log=print) -> dict:
+    """The data-parallel phase (``TRAIN`` and ``TRAIN_DP``, ``sizes`` over
+    them) on the
+    training phase's ``windows``: ``dp {...}`` lines (the timed steps'
+    median s, tokens/s, peak memory, the codec's device ms a step and its
+    share, the recorded all-reduces; the holds); returns the rows and the
+    seconds."""
+    device = torch.device(device)
+    sz = {**TRAIN, **TRAIN_DP, **(sizes or {})}
+    t0 = time.perf_counter()
+    cfg = (get_reduced if sz["reduced"] else get_config)(sz["arch"])
+    B = sz["B"]
+    S = int(windows.shape[1])
+    tcfg = TrainConfig(optimizer=default_train_config(cfg).optimizer,
+                       peak_lr=sz["peak_lr"])
+    require(tcfg.optimizer == "adamw", f"dp: {cfg.name} trains with "
+                                       f"{tcfg.optimizer}, not AdamW")
+    ccfg = CompressConfig()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    params, init_s = _zoo_params(cfg, device)
+    params.requires_grad_(True)
+    opt = adamw_init(params, tcfg.adamw)
+    res = init_residuals(params)
+    n_params = count_params(model_defs(cfg))
+
+    def batch(step):
+        return forecast_batches(windows, B, step, device=device)
+
+    probe = {"events": []}
+    inner = _dp.compress_with_feedback
+    with _one_rank_group(device) as mesh:
+        step_fn = _dp.build_dp_train_step(cfg, tcfg, mesh, ccfg)
+        try:
+            losses, times, codec_ms, recs = [], [], [], None
+            for i in range(sz["dp_warm"] + sz["dp_steps"]):
+                timed = i >= sz["dp_warm"]
+                if i == sz["dp_warm"] and device.type == "cuda":
+                    torch.cuda.reset_peak_memory_stats(device)
+                probe["events"] = []
+                _dp.compress_with_feedback = _codec_probe(inner, device,
+                                                          i == 0, probe)
+                b = batch(i)
+                _sync(device)
+                t1 = time.perf_counter()
+                with _coll.record_collectives() as rec:
+                    params, opt, res, m = step_fn(params, opt, res, b, i)
+                loss = float(m["loss"])
+                _sync(device)
+                dt = time.perf_counter() - t1
+                losses.append(loss)
+                if timed:
+                    times.append(dt)
+                    recs = rec
+                    codec_ms.append(sum(a.elapsed_time(z) for a, z in
+                                        probe["events"]))
+        finally:
+            _dp.compress_with_feedback = inner
+        require(all(np.isfinite(losses)), f"dp: losses {losses}")
+        mem = torch.cuda.max_memory_allocated(device)             if device.type == "cuda" else None
+        summ = _coll.collective_summary(recs)
+        buf = sum(c.bytes_buffer for c in recs if c.kind == "all-reduce")
+        require(buf == 4 * n_params + 4,
+                f"dp: all-reduced {buf} bytes, not 4 x {n_params} + 4")
+        step_s = statistics.median(times)
+        codec = statistics.median(codec_ms) if codec_ms and codec_ms[0] \
+            else None
+        row = dict(step="dp_topk", arch=cfg.name, layers=cfg.n_layers,
+                   d_model=cfg.d_model, param_dtype=cfg.param_dtype,
+                   params=n_params, world_size=1,
+                   backend="nccl" if device.type == "cuda" else "gloo",
+                   codec=ccfg.codec, ratio=ccfg.ratio, B=B, S=S,
+                   init_s=init_s, warm=sz["dp_warm"], losses=losses,
+                   step_s=times, median_step_s=step_s,
+                   tokens_per_s=B * S / step_s, max_memory_allocated=mem,
+                   codec_ms_per_step=codec,
+                   codec_share=codec / 1e3 / step_s if codec else None,
+                   all_reduces=summ["op_counts"].get("all-reduce", 0),
+                   all_reduce_bytes=buf,
+                   wire_bytes_per_device=summ["per_device_wire_bytes"],
+                   leaves_held=probe.get("leaves", 0),
+                   kept_share_min=probe.get("kept_share_min"),
+                   sent_plus_residual_bit_equal=True)
+        log("dp " + json.dumps(row))
+        hold = _dp_none_hold(device, cfg, tcfg, mesh, params, opt, res,
+                             batch(sz["dp_warm"] + sz["dp_steps"]))
+        log("dp " + json.dumps(hold))
+    del params, opt, res
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+        log("dp card " + nvidia_smi())
+    return dict(rows=[row, hold], seconds=time.perf_counter() - t0)
+
+
+def _dp_none_hold(device, cfg, tcfg, mesh, params, opt, res, b) -> dict:
+    """Codec "none" at world size 1 from zero residuals: the dp step's
+    parameters, moments and loss equal, bit for bit, ``adamw_update`` at
+    ``peak_lr`` on ``loss_fn``'s plain gradients from a copy of the same
+    state (deterministic algorithms)."""
+    step_fn = _dp.build_dp_train_step(cfg, tcfg, mesh,
+                                      CompressConfig(codec="none"))
+    with torch.no_grad():
+        for r in leaves(res):
+            r.zero_()
+        p_plain = copy.deepcopy(params)
+        o_plain = type(opt)(*(copy.deepcopy(f) for f in opt))
+    lr = torch.tensor(tcfg.peak_lr, dtype=torch.float32)
+    with deterministic():
+        params, opt, _, m = step_fn(params, opt, res, b)
+        _, loss, _, grads = _grads(p_plain, cfg, tcfg, b, None)
+        p_plain, o_plain, gnorm = adamw_update(grads, o_plain, p_plain, lr,
+                                               tcfg.adamw)
+        del grads
+    pairs = list(zip(leaves((params, opt)), leaves((p_plain, o_plain))))
+    same = [torch.equal(a, z) for a, z in pairs]
+    require(all(same), f"dp: codec none parts from the plain update on "
+                       f"{same.count(False)} of {len(same)} leaves")
+    require(float(m["loss"]) == float(loss)
+            and float(m["grad_norm"]) == float(gnorm),
+            f"dp: codec none's loss/norm {float(m['loss'])}/"
+            f"{float(m['grad_norm'])} != plain {float(loss)}/{float(gnorm)}")
+    del p_plain, o_plain
+    return dict(step="dp_none_vs_plain", arch=cfg.name, leaves=len(pairs),
+                leaves_bit_equal=True, loss=float(loss),
+                grad_norm=float(gnorm))
 
 
 def _scan_state(device, name: str, rounds: int, length=None):
@@ -4219,6 +4450,8 @@ def main() -> int:
     train = run_training(device)
     seconds["training"] = train["seconds"]
     add_launches(report, "training", train["launches"])
+    seconds["training_dp"] = run_training_dp(device,
+                                             train["windows"])["seconds"]
     for path in SEGMENT_CELLS_PATHS:
         require(report["by_path"].get(path, {}).get("segment_cells", 0) > 0,
                 f"segment_cells was never launched on the {path} path")

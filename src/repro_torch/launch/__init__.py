@@ -1,2 +1,3 @@
-"""Launchers (port of ``repro.launch``): ``serve``, ``train`` and
-``specs.default_train_config``."""
+"""Launchers and the production-mesh layer (port of ``repro.launch``):
+``serve``, ``train``, ``mesh``, ``specs``, ``analytic``, ``dryrun`` and
+``collectives`` (the counterpart of ``hlo``)."""

@@ -15,9 +15,10 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from repro_torch import sharding as shd
 from repro_torch.models.layers import (apply_mrope, apply_rope, rmsnorm,
                                        rmsnorm_defs)
-from repro_torch.models.params import ParamDef
+from repro_torch.models.params import ParamDef, TensorSpec
 
 # Finite on purpose: in ``_sdpa_chunked`` a kv chunk that is wholly masked
 # gives exp(s - m) = 1 until a real score arrives, and then
@@ -201,6 +202,32 @@ def init_kv_cache(spec, B: int, max_len: int, dtype, device) -> KVCache:
         v=torch.zeros(shape, dtype=dtype, device=device),
         pos_ids=pos_ids, k_scale=torch.ones((1,), device=device),
         v_scale=torch.ones((1,), device=device))
+
+
+def kv_cache_specs(spec, B: int, max_len: int, dtype, mesh, rules) -> KVCache:
+    """The cache's :class:`~repro_torch.models.params.TensorSpec`s with
+    their shardings (int8 values and float32 scales a slot and head for a
+    quantized cache)."""
+    size = kv_cache_size(spec, max_len)
+    kv_shape = (B, size, spec.n_kv, spec.head_dim)
+    kv_axes = ("act_cache_batch", "act_cache_seq", "act_kv_heads", None)
+    qdt = torch.int8 if _quantized(spec) else dtype
+
+    def sds(shape, axes, dt):
+        return TensorSpec(shape, dt,
+                          shd.named_sharding(shape, axes, mesh, rules))
+
+    if _quantized(spec):
+        sc_shape = kv_shape[:-1] + (1,)
+        k_scale = sds(sc_shape, kv_axes, torch.float32)
+        v_scale = sds(sc_shape, kv_axes, torch.float32)
+    else:
+        k_scale = sds((1,), (None,), torch.float32)
+        v_scale = sds((1,), (None,), torch.float32)
+    return KVCache(
+        k=sds(kv_shape, kv_axes, qdt), v=sds(kv_shape, kv_axes, qdt),
+        pos_ids=sds((B, size), ("act_cache_batch", None), torch.int32),
+        k_scale=k_scale, v_scale=v_scale)
 
 
 def attend_decode(p, x: torch.Tensor, pos: int, cache: KVCache, spec):

@@ -31,8 +31,9 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import sharding as shd
 from repro_torch.models.layers import rmsnorm_defs, silu
-from repro_torch.models.params import ParamDef
+from repro_torch.models.params import ParamDef, TensorSpec
 
 
 def mamba_defs(spec):
@@ -141,6 +142,26 @@ def init_mamba_cache(spec, B: int, dtype, device) -> MambaCache:
                            device=device),
         conv_B=torch.zeros((B, w - 1, gn), dtype=dtype, device=device),
         conv_C=torch.zeros((B, w - 1, gn), dtype=dtype, device=device))
+
+
+def mamba_cache_specs(spec, B: int, dtype, mesh, rules) -> MambaCache:
+    """The cache's :class:`~repro_torch.models.params.TensorSpec`s with
+    their shardings."""
+    w = spec.conv_width
+
+    def sds(shape, axes, dt):
+        return TensorSpec(shape, dt,
+                          shd.named_sharding(shape, axes, mesh, rules))
+
+    gn = spec.n_groups * spec.d_state
+    return MambaCache(
+        ssm=sds((B, spec.m_heads, spec.headdim, spec.d_state),
+                ("act_cache_batch", "act_heads", None, None), torch.float32),
+        conv_x=sds((B, w - 1, spec.d_inner),
+                   ("act_cache_batch", None, "act_inner"), dtype),
+        conv_B=sds((B, w - 1, gn), ("act_cache_batch", None, None), dtype),
+        conv_C=sds((B, w - 1, gn), ("act_cache_batch", None, None), dtype),
+    )
 
 
 def _projections(p, x: torch.Tensor):

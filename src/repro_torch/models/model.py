@@ -7,6 +7,8 @@ with a dense or MoE MLP (or none), in any pattern (the hybrid's too).
 * ``prefill``      — last-position logits + per-layer caches for serving
                      (``KVCache`` for attention, ``MambaCache`` for Mamba).
 * ``decode_step``  — one-token step against the stacked caches.
+* ``cache_specs``  — the caches' shapes, dtypes and shardings, nothing
+                     allocated (the dry-run's stand-ins).
 
 The reference scans the repeated block pattern (``jax.lax.scan`` over the
 stacked block params); the port walks the block axis in a Python loop.
@@ -17,8 +19,9 @@ backward writes a zero tensor the size of the whole stacked leaf, once a
 block) and applies ``cfg.remat`` to each block as the reference's
 ``_remat_wrap`` does: ``full`` recomputes the block in the backward pass
 (``torch.utils.checkpoint``), ``dots`` saves the projections' 2-D
-products and recomputes the rest.  The reference's sharding constraints
-are dropped (one device; the MoE's a2a forms shard over ranks under
+products and recomputes the rest.  The reference's ``constrain`` calls
+are not made: on the local tensors of one card ``sharding.constrain`` is a
+no-op (the MoE's a2a forms shard over ranks under
 ``sharding.use_sharding``).
 """
 from __future__ import annotations
@@ -29,6 +32,7 @@ from typing import Optional
 import torch
 from torch.utils import checkpoint as _ckpt
 
+from repro_torch import sharding as shd
 from repro_torch.configs.base import LayerSpec, ModelConfig, layer_ctx
 from repro_torch.core.cameo import _device
 from repro_torch.models import attention as attn
@@ -39,7 +43,7 @@ from repro_torch.models.layers import (
     embed, embed_defs, mlp, mlp_defs, rmsnorm, rmsnorm_defs,
     sinusoidal_positions, unembed, unembed_defs,
 )
-from repro_torch.models.params import as_tree, stack_defs
+from repro_torch.models.params import TensorSpec, as_tree, stack_defs
 
 
 # ---------------------------------------------------------------------------
@@ -352,7 +356,7 @@ def decode_step(params, cfg: ModelConfig, token: torch.Tensor, caches,
 
 
 # ---------------------------------------------------------------------------
-# cache initialization
+# cache initialization / dry-run specs
 # ---------------------------------------------------------------------------
 
 def init_caches(cfg: ModelConfig, B: int, max_len: int, dtype=None,
@@ -373,3 +377,32 @@ def init_caches(cfg: ModelConfig, B: int, max_len: int, dtype=None,
     for j, ls in enumerate(cfg.remainder):
         caches[f"rem{j}"] = one(ls)
     return caches
+
+
+def cache_specs(cfg: ModelConfig, B: int, max_len: int, mesh, rules,
+                dtype=None):
+    """The caches' ``TensorSpec``s with their shardings (the dry-run's
+    decode stand-ins): the blocks' stacked on a leading replicated block
+    axis, the remainder's per layer."""
+    dtype = dtype or cfg.adtype()
+
+    def one(ls: LayerSpec):
+        ctx = layer_ctx(cfg, ls)
+        if ls.kind == "attn":
+            return attn.kv_cache_specs(ctx, B, max_len, dtype, mesh, rules)
+        return mb.mamba_cache_specs(ctx, B, dtype, mesh, rules)
+
+    def stack(c):
+        return type(c)(*(TensorSpec((cfg.n_blocks,) + s.shape, s.dtype,
+                                    _stacked_sharding(s, mesh)) for s in c))
+
+    caches = {"blocks": {f"sub{j}": stack(one(ls))
+                         for j, ls in enumerate(cfg.pattern)}}
+    for j, ls in enumerate(cfg.remainder):
+        caches[f"rem{j}"] = one(ls)
+    return caches
+
+
+def _stacked_sharding(s: TensorSpec, mesh) -> shd.NamedSharding:
+    spec = s.sharding.spec if s.sharding is not None else shd.P()
+    return shd.NamedSharding(mesh, shd.P(*((None,) + tuple(spec))))

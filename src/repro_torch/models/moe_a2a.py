@@ -32,6 +32,7 @@ import torch.nn.functional as F
 
 from repro_torch import sharding as shd
 from repro_torch.kernels.ref import div_exact
+from repro_torch.launch import collectives as _coll
 from repro_torch.models import moe as moe_base
 from repro_torch.models.layers import mlp
 
@@ -72,6 +73,9 @@ def _a2a(send: torch.Tensor, group) -> torch.Tensor:
     result came from rank ``i``."""
     send = send.contiguous()
     recv = torch.empty_like(send)
+    if _coll.RECORDER is not None:
+        _coll.note("all-to-all", send.numel() * send.element_size(),
+                   dist.get_world_size(group), "moe_a2a._a2a")
     dist.all_to_all_single(recv, send, group=group)
     return recv
 
@@ -246,11 +250,14 @@ def moe_apply_a2a_2d(p, x: torch.Tensor, spec, mesh, axis: str = "model",
 def moe_apply(p, x: torch.Tensor, spec, impl: str = "scatter"):
     """Dispatching wrapper: the a2a forms when asked for and a model axis
     of more than one rank is active and divides the experts; otherwise the
-    scatter path (``models/moe.py``)."""
+    scatter path (``models/moe.py``).  The a2a forms need live ranks: under
+    a process-free ``sharding.AbstractMesh`` (the dry-run's) they raise."""
     mesh = shd.active_mesh()
-    usable = mesh is not None and "model" in mesh.mesh_dim_names \
-        and shd.axis_size(mesh, "model") > 1 \
-        and spec.n_experts % shd.axis_size(mesh, "model") == 0
+    if impl != "scatter" and isinstance(mesh, shd.AbstractMesh):
+        raise ValueError(f"moe_impl {impl!r} needs a DeviceMesh of live "
+                         f"ranks, not an AbstractMesh")
+    mp = shd.mesh_shape(mesh).get("model", 1) if mesh is not None else 1
+    usable = mp > 1 and spec.n_experts % mp == 0
     if impl == "a2a" and usable:
         return moe_apply_a2a(p, x, spec, mesh)
     if impl == "a2a_q8" and usable:

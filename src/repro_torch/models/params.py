@@ -3,9 +3,12 @@ declaration site for shape, dtype, logical axes and initializer.
 
 A model builds a nested dict of :class:`ParamDef`; from it come the real
 parameters (``init_params``: a :class:`ParamTree` module, one seeded draw
-per tree path) and the parameter count (``count_params``, shape arithmetic
-only).  The logical ``axes`` are kept for the model-zoo sharding rules of a
-later slice; one device uses none of them.
+per tree path), the dry-run's stand-ins (``abstract_params``: a
+:class:`TensorSpec` a leaf, its sharding from the logical ``axes`` under
+``sharding.spec_for``; ``.meta()`` gives an empty tensor on the meta
+device, nothing is drawn), the specs alone (``param_specs``,
+``param_shardings``) and the parameter count (``count_params``, shape
+arithmetic only).
 
 The reference folds ``hash(path_element)`` into its key
 (``src/repro/models/params.py:53``); a ``str`` hash is salted per process,
@@ -27,11 +30,12 @@ from __future__ import annotations
 import dataclasses
 import math
 import zlib
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 from torch import nn
 
+from repro_torch import sharding as shd
 from repro_torch.core.cameo import _device
 
 
@@ -133,6 +137,47 @@ def init_params(defs, seed: int = 0, device="cuda", param_dtype=None,
         return _draw(path, d, seed, on).to(device=device, dtype=dtype)
 
     return ParamTree(_map_defs(one, defs))
+
+
+@dataclasses.dataclass(frozen=True)
+class TensorSpec:
+    """A tensor's shape, dtype and sharding, nothing allocated
+    (``jax.ShapeDtypeStruct``)."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    sharding: Optional[shd.NamedSharding] = None
+
+    def meta(self) -> torch.Tensor:
+        """An empty tensor of this shape and dtype on the meta device."""
+        return torch.empty(self.shape, dtype=self.dtype, device="meta")
+
+
+def abstract_params(defs, mesh=None, rules=None, param_dtype=None):
+    """A :class:`TensorSpec` tree with ``NamedSharding``s: the dry-run's
+    stand-ins."""
+
+    def one(path, d: ParamDef):
+        dtype = param_dtype or d.dtype
+        if mesh is not None:
+            s = shd.named_sharding(d.shape, d.axes, mesh, rules)
+            return TensorSpec(d.shape, dtype, s)
+        return TensorSpec(d.shape, dtype)
+
+    return _map_defs(one, defs)
+
+
+def param_shardings(defs, mesh=None, rules=None):
+    def one(path, d: ParamDef):
+        return shd.named_sharding(d.shape, d.axes, mesh, rules)
+
+    return _map_defs(one, defs)
+
+
+def param_specs(defs, mesh=None, rules=None):
+    def one(path, d: ParamDef):
+        return shd.spec_for(d.shape, d.axes, mesh, rules)
+
+    return _map_defs(one, defs)
 
 
 def count_params(defs) -> int:

@@ -1,2 +1,3 @@
-"""Training (port of ``repro.train``): the train ``step`` and the
-fault-tolerant ``loop``."""
+"""Training (port of ``repro.train``): the train ``step``, the
+fault-tolerant ``loop`` and the explicit data-parallel step
+``dp_shardmap``."""
